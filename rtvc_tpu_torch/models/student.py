@@ -1,0 +1,283 @@
+"""StudentCandidateV1: TinyViT frame encoder + Transformer caption decoder.
+
+Counterpart of ``rtvc_tpu/models/student.py``, inference only. The module
+tree has the reference's state-dict keys (``image_encoder.model.*`` in
+timm's layout, ``decoder.layers.{i}.{self_attn, multihead_attn, linear1,
+linear2, norm1, norm2, norm3}``, ``embed``, ``linear``, ``projectors.{i}``,
+``upsample``, ``project``, ``project_decoder``), so
+``rtvc_tpu.models.convert.student_params_from_torch`` reads its state dict
+as it is and :mod:`.convert` goes the other way.
+
+Kept from the reference and the JAX model:
+
+- the embedded sequence is divided by √d_model after the positional
+  encoding is added;
+- the decoder layer is post-norm (``nn.TransformerDecoderLayer``
+  semantics: self-attn → add+LN → cross-attn → add+LN → ReLU FFN →
+  add+LN), its norms on kernel K2;
+- :meth:`StudentCandidateV1.decode_step` runs one token against a KV cache
+  preallocated by :meth:`~StudentCandidateV1.init_cache`; unlike JAX it
+  writes the new key and value into the cache in place. With ``vocab_w8``
+  the vocab projection runs on kernel K3.
+
+The distillation heads are built (their weights travel with a checkpoint)
+but the caption step never calls them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import Config, TinyViTConfig, tiny_vit_21m_config
+from ..ops.attention import multi_head_attention
+from ..ops.int8_gemm import w8_dense
+from ..ops.layernorm import FusedLayerNorm
+from .layers import PositionalEncoding
+from .tinyvit import TinyViT, stage_means
+
+Cache = Dict[str, torch.Tensor]
+
+
+class MultiheadAttention(nn.Module):
+    """``nn.MultiheadAttention``'s parameters (packed ``in_proj_weight``
+    [3D, D] in q|k|v order, ``in_proj_bias``, ``out_proj``) around
+    :func:`ops.attention.multi_head_attention`."""
+
+    def __init__(self, d_model: int, n_head: int):
+        super().__init__()
+        self.d_model = d_model
+        self.n_head = n_head
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
+        b, l, _ = x.shape
+        return x.view(b, l, self.n_head, -1).transpose(1, 2)
+
+    def _merge_heads(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, l, d = x.shape
+        return x.transpose(1, 2).reshape(b, l, h * d)
+
+    def _proj(self, x: torch.Tensor, part: int) -> torch.Tensor:
+        d = self.d_model
+        w = self.in_proj_weight[part * d:(part + 1) * d]
+        b = self.in_proj_bias[part * d:(part + 1) * d]
+        return self._split_heads(F.linear(x, w, b))
+
+    def project_q(self, x: torch.Tensor) -> torch.Tensor:
+        return self._proj(x, 0)
+
+    def project_kv(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._proj(x, 1), self._proj(x, 2)
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = False,
+               kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Heads ``q/k/v [B, H, L, hd]`` → ``out_proj`` of the merged output."""
+        out = multi_head_attention(q, k, v, causal=causal, kv_mask=kv_mask)
+        return self.out_proj(self._merge_heads(out))
+
+    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor, *,
+                causal: bool = False,
+                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        k, v = self.project_kv(kv_in)
+        return self.attend(self.project_q(q_in), k, v, causal=causal,
+                           kv_mask=kv_mask)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-norm decoder layer, ``nn.TransformerDecoderLayer`` semantics
+    (batch-first, ReLU, eps 1e-5) and parameter names."""
+
+    def __init__(self, d_model: int, n_head: int, d_ffn: int):
+        super().__init__()
+        self.n_head = n_head
+        self.self_attn = MultiheadAttention(d_model, n_head)
+        self.multihead_attn = MultiheadAttention(d_model, n_head)
+        self.linear1 = nn.Linear(d_model, d_ffn)
+        self.linear2 = nn.Linear(d_ffn, d_model)
+        self.norm1 = FusedLayerNorm(d_model)
+        self.norm2 = FusedLayerNorm(d_model)
+        self.norm3 = FusedLayerNorm(d_model)
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(F.relu(self.linear1(x)))
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, *,
+                tgt_kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.norm1(x + self.self_attn(x, x, causal=True,
+                                          kv_mask=tgt_kv_mask))
+        x = self.norm2(x + self.multihead_attn(x, memory))
+        return self.norm3(x + self._ffn(x))
+
+    def init_cache(self, batch: int, max_len: int,
+                   memory: torch.Tensor) -> Cache:
+        mem_k, mem_v = self.multihead_attn.project_kv(memory)
+        head_dim = memory.shape[-1] // self.n_head
+        zeros = torch.zeros((batch, self.n_head, max_len, head_dim),
+                            dtype=memory.dtype, device=memory.device)
+        return {"k": zeros, "v": torch.zeros_like(zeros),
+                "mem_k": mem_k, "mem_v": mem_v}
+
+    def decode_step(self, x: torch.Tensor, cache: Cache, index: int,
+                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x [B, 1, D]`` at position ``index``; writes this token's key and
+        value into ``cache`` in place. ``kv_mask [B, max_len]`` marks the
+        cache slots to attend (default: slots ``<= index``)."""
+        sa = self.self_attn
+        q = sa.project_q(x)
+        k_new, v_new = sa.project_kv(x)
+        cache["k"][:, :, index] = k_new[:, :, 0]
+        cache["v"][:, :, index] = v_new[:, :, 0]
+        if kv_mask is None:
+            max_len = cache["k"].shape[2]
+            kv_mask = (torch.arange(max_len, device=x.device) <= index)[None]
+        x = self.norm1(x + sa.attend(q, cache["k"], cache["v"],
+                                     kv_mask=kv_mask))
+        ca = self.multihead_attn
+        x = self.norm2(x + ca.attend(ca.project_q(x), cache["mem_k"],
+                                     cache["mem_v"]))
+        return self.norm3(x + self._ffn(x))
+
+
+class StudentCandidateV1(nn.Module):
+    """TinyViT-21M frame encoder + N-layer caption decoder."""
+
+    def __init__(self, d_model: int = 576, n_head: int = 8,
+                 d_ffn: int = 1024, num_decoder_layers: int = 2,
+                 vocab_size: int = 30522, cls_token_id: int = 101,
+                 sep_token_id: int = 102, max_pos_len: int = 500,
+                 encoder_config: TinyViTConfig = tiny_vit_21m_config(),
+                 input_size: int = 224, num_frames: int = 6,
+                 teacher_visual_dim: int = 1024,
+                 teacher_num_tokens: int = 1542, teacher_hidden: int = 768):
+        super().__init__()
+        self.d_model = d_model
+        self.vocab_size = vocab_size
+        self.cls_token_id = cls_token_id
+        self.sep_token_id = sep_token_id
+        # the reference's prefixes: image_encoder.model.*, decoder.layers.*
+        self.image_encoder = nn.ModuleDict(
+            {"model": TinyViT(encoder_config, input_size)})
+        self.decoder = nn.ModuleDict({"layers": nn.ModuleList(
+            [TransformerDecoderLayer(d_model, n_head, d_ffn)
+             for _ in range(num_decoder_layers)])})
+        self.embed = nn.Embedding(vocab_size, d_model)
+        self.linear = nn.Linear(d_model, vocab_size)
+        self.pos_enc = PositionalEncoding(d_model, max_pos_len)
+        # distillation heads (reference model.py:87-94)
+        self.projectors = nn.ModuleList(
+            [nn.Linear(c, teacher_visual_dim)
+             for c in encoder_config.embed_dims])
+        self.upsample = nn.Linear(num_frames, teacher_num_tokens)
+        self.project = nn.Linear(d_model, teacher_visual_dim)
+        self.project_decoder = nn.Linear(d_model, teacher_hidden)
+
+    # ---- encoder ----------------------------------------------------------
+    def forward_image_enc(self, x: torch.Tensor
+                          ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """``x [B, F, H, W, 3]`` (or ``[B, F, 3, H, W]``) → (four NHWC stage
+        maps of the B·F frames, memory ``[B, F, C]``: the last map's
+        spatial mean)."""
+        if x.shape[2] == 3 and x.shape[-1] != 3:
+            x = x.permute(0, 1, 3, 4, 2)
+        b, f = x.shape[:2]
+        fmaps = self.image_encoder["model"](x.reshape((b * f,) + x.shape[2:]))
+        memory = stage_means(fmaps[-1:])[0].reshape(b, f, -1)
+        return fmaps, memory
+
+    # ---- decoder ----------------------------------------------------------
+    def _embed_tokens(self, y: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        emb = self.pos_enc(self.embed(y), offset=offset)
+        return emb / math.sqrt(self.d_model)  # after the PE add (reference)
+
+    def forward_decoder(self, y: torch.Tensor,
+                        memory: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced decode of ``y [B, L]`` → logits ``[B, L, V]``;
+        keys at pad id 0 are masked."""
+        x = self._embed_tokens(y)
+        for layer in self.decoder["layers"]:
+            x = layer(x, memory, tgt_kv_mask=y != 0)
+        return self.linear(x)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> List[torch.Tensor]:
+        fmaps, memory = self.forward_image_enc(x)
+        return fmaps + [self.forward_decoder(y, memory)]
+
+    # ---- incremental decode -------------------------------------------------
+    def init_cache(self, batch: int, max_len: int,
+                   memory: torch.Tensor) -> List[Cache]:
+        return [layer.init_cache(batch, max_len, memory)
+                for layer in self.decoder["layers"]]
+
+    def decode_step(self, token: torch.Tensor, index: int,
+                    caches: List[Cache],
+                    kv_mask: Optional[torch.Tensor] = None,
+                    vocab_w8: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Tuple[torch.Tensor, List[Cache]]:
+        """``token [B]`` at position ``index`` → (logits ``[B, V]``, the
+        caches, updated in place). ``vocab_w8`` (from
+        :func:`ops.quantization.quantize_vocab_head`) sends the vocab
+        projection through K3."""
+        x = self._embed_tokens(token[:, None], offset=index)
+        for layer, cache in zip(self.decoder["layers"], caches):
+            x = layer.decode_step(x, cache, index, kv_mask=kv_mask)
+        if vocab_w8 is not None:
+            logits = w8_dense(x[:, 0], vocab_w8["wq"], vocab_w8["sw"],
+                              vocab_w8["bias"])
+            return logits[:, :self.vocab_size], caches
+        return self.linear(x)[:, 0], caches
+
+
+def student_from_config(cfg: Config, input_size: int = 224
+                        ) -> StudentCandidateV1:
+    """Build the student of a :class:`~rtvc_tpu_torch.config.Config`
+    (float32 parameters; cast with ``.to(cfg.dtype)``)."""
+    s = cfg.student
+    enc = tiny_vit_21m_config(gelu_approximate=s.gelu_approximate)
+    return StudentCandidateV1(
+        d_model=s.d_model, n_head=s.n_head, d_ffn=s.d_ffn,
+        num_decoder_layers=s.num_decoder_layers, vocab_size=s.vocab_size,
+        cls_token_id=s.cls_token_id, sep_token_id=s.sep_token_id,
+        max_pos_len=s.max_pos_len, encoder_config=enc, input_size=input_size,
+        num_frames=cfg.num_frames, teacher_visual_dim=cfg.teacher_visual_dim,
+        teacher_num_tokens=cfg.teacher_num_frames * 257,
+        teacher_hidden=cfg.teacher_hidden)
+
+
+@torch.no_grad()
+def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every parameter and BatchNorm statistic from ``generator``:
+    LeCun-normal weights, zero biases, unit norms, small relative-position
+    biases, unit-variance embeddings. Deterministic for a seeded CPU
+    generator, whatever the module's device."""
+    def normal(t: torch.Tensor, std: float) -> None:
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            fan_in = mod.weight[0].numel()
+            normal(mod.weight, fan_in ** -0.5)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            normal(mod.weight, 1.0)
+        elif isinstance(mod, MultiheadAttention):
+            normal(mod.in_proj_weight, mod.d_model ** -0.5)
+            mod.in_proj_bias.zero_()
+        elif isinstance(mod, (FusedLayerNorm, nn.BatchNorm2d)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if isinstance(mod, nn.BatchNorm2d):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        if hasattr(mod, "attention_biases"):
+            normal(mod.attention_biases, 0.1)
+    return model

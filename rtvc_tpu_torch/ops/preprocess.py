@@ -1,0 +1,47 @@
+"""CLIP image preprocessing on the device.
+
+Counterpart of ``clip_preprocess`` in ``rtvc_tpu/ops/preprocess.py``:
+uint8 BGR frames → shorter-edge bicubic resize → center crop → BGR→RGB →
+CLIP normalize, NHWC in and out. The resize passes ``antialias=True``:
+PyTorch's antialiased bicubic uses the same a = -0.5 cubic kernel as
+``jax.image.resize`` and matches it to ~1e-5, while the default
+(``antialias=False``) path differs by up to 0.66 on a 480×640 frame.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def resized_shape(h: int, w: int, crop_size: int) -> Tuple[int, int]:
+    """torchvision ``Resize(int)``: the shorter edge becomes ``crop_size``."""
+    if h <= w:
+        return crop_size, max(int(round(w * crop_size / h)), crop_size)
+    return max(int(round(h * crop_size / w)), crop_size), crop_size
+
+
+def clip_preprocess(frames: torch.Tensor, crop_size: int = 224,
+                    bgr_to_rgb: bool = True) -> torch.Tensor:
+    """uint8 ``[N, H, W, 3]`` (BGR, as cv2 decodes) → float32
+    ``[N, crop_size, crop_size, 3]`` on the same device."""
+    n, h, w, c = frames.shape
+    x = frames.permute(0, 3, 1, 2).float() / 255.0
+    new_h, new_w = resized_shape(h, w, crop_size)
+    if (new_h, new_w) != (h, w):
+        x = F.interpolate(x, size=(new_h, new_w), mode="bicubic",
+                          align_corners=False, antialias=True)
+    top = (new_h - crop_size) // 2
+    left = (new_w - crop_size) // 2
+    x = x[:, :, top:top + crop_size, left:left + crop_size]
+    if bgr_to_rgb:
+        x = x.flip(1)
+    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
+    x = (x - mean[:, None, None]) / std[:, None, None]
+    return x.permute(0, 2, 3, 1)
