@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's caption step once on an NVIDIA GPU.
+"""Drive the PyTorch port's caption step and frozen teacher once on an
+NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -10,16 +11,28 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
 2. build: compile ``rtvc_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``build/`` and load it;
 3. kernels: K1 (window attention), K2 (LayerNorm) and K3 (int8 GEMV) at
-   the caption step's shapes, in bfloat16 and float32, each held against
-   its plain PyTorch version on the card and timed against it with CUDA
-   events;
+   the caption step's shapes, K2, K4 (flash attention), K5 (BLHD
+   attention), K6 (add + LayerNorm) and K7 (W8A8 GEMM) at the teacher's,
+   in bfloat16 and float32, each held against its plain PyTorch version
+   on the card and timed against it with CUDA events;
 4. slice: the full-width student (random weights from a seeded generator,
    bfloat16) serves 8 distinct 480×640 6-frame windows at batch 1 and as
    one batch of 8, through the default and the ``vocab_int8`` caption
    steps. The kernels' launch counts are reset just before and read just
    after; every kernel of the path must have launched. Then, in float32
    with TF32 off, the card's encoder memory, first-step logits and token
-   rows are held against the same step run on the CPU (plain versions).
+   rows are held against the same step run on the CPU (plain versions);
+5. teacher: the full-width GIT-Large teacher (CLIP ViT-L/14 + the 6-layer
+   joint decoder, random weights from a seeded generator, bfloat16) runs
+   ``forward_output_logits`` on 8 preprocessed windows with 40-token
+   captions and four encoder taps, then the same on its W8A8 copy
+   (``quantize_teacher_``), then ``teacher_beam`` (batch 2, 4 beams, 15
+   steps) and ``teacher_kd_targets``. Launch counts are reset before and
+   read after each run and must equal the layer counts. One more W8A8
+   forward holds every K7 launch in it against the plain version on the
+   same input. Then, in float32 with TF32 off, a depth-cut teacher (2 CLIP
+   blocks, 2 joint layers, full widths) on the card is held against the
+   same model on the CPU.
 
 It prints the kernels' record as one JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -47,8 +60,11 @@ FRAME_HW = (480, 640)
 # value) where the float32 results straddle a rounding boundary.
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # card vs CPU, float32, TF32 off: the full 14-stage encoder and 2-layer
-# decoder with every sum in another order
+# decoder (or the depth-cut teacher) with every sum in another order
 SLICE_TOL = 1e-3
+CAPTION_LEN = 40               # teacher-forced caption tokens
+TAPS = (0, 6, 12, 18)          # CLIP blocks tapped for distillation
+BEAM_BATCH, BEAMS, BEAM_STEPS = 2, 4, 15
 
 KERNELS = {
     "window_attention": ("rtvc_tpu_torch/csrc/window_attention.cu",
@@ -57,6 +73,14 @@ KERNELS = {
                    "rtvc_tpu/ops/layernorm.py:40"),
     "w8_matmul": ("rtvc_tpu_torch/csrc/w8_matmul.cu",
                   "rtvc_tpu/ops/int8_gemm.py:169"),
+    "flash_attention": ("rtvc_tpu_torch/csrc/flash_attention.cu",
+                        "rtvc_tpu/ops/attention.py:274"),
+    "blhd_attention": ("rtvc_tpu_torch/csrc/flash_attention.cu",
+                       "rtvc_tpu/ops/attention.py:642"),
+    "fused_add_layer_norm": ("rtvc_tpu_torch/csrc/layer_norm.cu",
+                             "rtvc_tpu/ops/layernorm.py:159"),
+    "w8a8_matmul": ("rtvc_tpu_torch/csrc/w8a8_matmul.cu",
+                    "rtvc_tpu/ops/int8_gemm.py:100"),
 }
 
 
@@ -99,15 +123,28 @@ def rel_err(got, want) -> tuple:
 # ---------------------------------------------------------------------------
 
 def kernel_cases(dev, g):
-    """(kernel name, label, kernel call, plain call) at the caption step's
-    shapes: TinyViT window attention per stage at batch 1 and 8 (6-frame
-    windows), the decoder's [B, 576] norms and TinyViT's stage-1 norm, the
-    vocab GEMV at 1 and 8 rows."""
+    """(kernel name, label, kernel call, plain call, timing reps) at the
+    main path's shapes. The caption step's: TinyViT window attention per
+    stage at batch 1 and 8 (6-frame windows), the decoder's [B, 576] norms
+    and TinyViT's stage-1 norm, the vocab GEMV at 1 and 8 rows. The
+    teacher's: the joint attention over 1542 visual + 40 text tokens at
+    batch 8 (on strided head views of the QKV product, as the model passes
+    them), a ragged and a key-masked case (one row with no key left), the
+    CLIP attention of 48 frames, the CLIP norms over 48 × 257 tokens at
+    eps 1e-5 and the joint norms over 8 × 1582 tokens at eps 1e-12, the
+    ln_2 add + norm, and the W8A8 GEMMs of a CLIP MLP (both Linears) at
+    M = 12336, of the joint fc2 at M = 12656 (K up to 4096, where the
+    int32 sums pass 2^24) and of the vocab projection at the
+    teacher-forced M = 320 and a beam's M = 8."""
     import torch
     from rtvc_tpu_torch.ops import attention, int8_gemm, layernorm
 
     def rand(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).to(dev)
 
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -126,7 +163,7 @@ def kernel_cases(dev, g):
                         attention.window_attention(q, k, v, bias, **kw),
                     lambda q=q, k=k, v=v, bias=bias, kw=kw:
                         attention.window_attention_plain(q, k, v, bias,
-                                                         **kw)))
+                                                         **kw), 50))
         for rows, width in ((8, 576), (8 * 25, 576),
                             (8 * FRAMES * 28 * 28, 192)):
             x = rand(rows, width, dtype=dtype, scale=2.0)
@@ -134,7 +171,8 @@ def kernel_cases(dev, g):
             cases.append((
                 "layer_norm", f"{dn} [{rows},{width}]",
                 lambda x=x, w=w, bb=bb: layernorm.layer_norm(x, w, bb),
-                lambda x=x, w=w, bb=bb: layernorm.layer_norm_plain(x, w, bb)))
+                lambda x=x, w=w, bb=bb: layernorm.layer_norm_plain(x, w, bb),
+                50))
         wq = torch.randint(-127, 128, (576, 31744), generator=g,
                            dtype=torch.int8).to(dev)
         sw = (torch.rand(31744, generator=g) / (127 * 24)).to(dev)
@@ -143,8 +181,72 @@ def kernel_cases(dev, g):
             x = rand(m, 576, dtype=dtype)
             cases.append((
                 "w8_matmul", f"{dn} M={m} [576,31744]",
-                lambda x=x: int8_gemm.w8_matmul(x, wq, sw, bb),
-                lambda x=x: int8_gemm.w8_matmul_plain(x, wq, sw, bb)))
+                lambda a=(x, wq, sw, bb): int8_gemm.w8_matmul(*a),
+                lambda a=(x, wq, sw, bb): int8_gemm.w8_matmul_plain(*a), 50))
+
+        # the teacher (K4-K7)
+        b, h, lq, d, prefix = WINDOWS, 12, FRAMES * 257 + CAPTION_LEN, 64, \
+            FRAMES * 257
+        qkv = rand(b, lq, 3 * h * d, dtype=dtype)
+        heads = tuple(t.transpose(1, 2)
+                      for t in qkv.view(b, lq, 3, h, d).unbind(2))
+        mask = torch.rand(b, lq, generator=g).to(dev) > 0.1
+        mask[-1] = False
+        ragged = (rand(2, h, 1000, d, dtype=dtype),
+                  rand(2, h, 1037, d, dtype=dtype),
+                  rand(2, h, 1037, d, dtype=dtype))
+        for label, args, kw in (
+                (f"joint [{b},{h},{lq},{d}] prefix {prefix}", heads,
+                 dict(causal=True, prefix_len=prefix)),
+                (f"ragged [2,{h},1000x1037,{d}] prefix 900", ragged,
+                 dict(causal=True, prefix_len=900)),
+                (f"key-masked [{b},{h},{lq},{d}]", heads,
+                 dict(causal=True, prefix_len=prefix, kv_mask=mask))):
+            cases.append((
+                "flash_attention", f"{dn} {label}",
+                lambda a=args, kw=kw: attention.flash_attention(*a, **kw),
+                lambda a=args, kw=kw: attention.flash_attention_plain(*a,
+                                                                      **kw),
+                10))
+        clip_qkv = rand(WINDOWS * FRAMES, 257, 3 * 1024, dtype=dtype)
+        views = clip_qkv.view(WINDOWS * FRAMES, 257, 3, 16, 64).unbind(2)
+        cases.append((
+            "blhd_attention", f"{dn} clip [{WINDOWS * FRAMES},257,16,64]",
+            lambda a=views: attention.blhd_attention(*a),
+            lambda a=views: attention.blhd_attention_plain(*a), 10))
+        rows = WINDOWS * FRAMES * 257
+        joint_rows = WINDOWS * lq
+        for width, n, eps in ((1024, rows, 1e-5), (768, joint_rows, 1e-12)):
+            # row scales from 1e-3 to 2: the small-variance rows tell the
+            # two eps values apart, so a kernel given the wrong one fails
+            scale = torch.logspace(-3, 0.3, n).to(dev)[:, None]
+            x = (rand(n, width) * scale).to(dtype)
+            w, bb = rand(width, dtype=dtype), rand(width, dtype=dtype)
+            cases.append((
+                "layer_norm", f"{dn} teacher [{n},{width}] eps {eps:g}",
+                lambda a=(x, w, bb, eps): layernorm.layer_norm(*a),
+                lambda a=(x, w, bb, eps): layernorm.layer_norm_plain(*a), 10))
+        x, dx = (rand(rows, 1024, dtype=dtype, scale=2.0) for _ in range(2))
+        w, bb = rand(1024, dtype=dtype), rand(1024, dtype=dtype)
+        cases.append((
+            "fused_add_layer_norm", f"{dn} [{rows},1024]",
+            lambda a=(x, dx, w, bb): layernorm.fused_add_layer_norm(*a),
+            lambda a=(x, dx, w, bb): layernorm.fused_add_layer_norm_plain(*a),
+            10))
+        for label, m, k, n in (("clip fc", rows, 1024, 3072),
+                               ("clip c_proj", rows, 4096, 1024),
+                               ("joint fc2", joint_rows, 3072, 768),
+                               ("vocab", WINDOWS * CAPTION_LEN, 768, 30522),
+                               ("vocab", WINDOWS, 768, 30522)):
+            xq, pack = int8(m, k), int8(n, k)
+            sx = torch.rand(m, generator=g).to(dev) * 0.02 + 1e-3
+            swn = torch.rand(n, generator=g).to(dev) * 1e-3 + 1e-4
+            bn = rand(n, scale=0.1)
+            args = (xq, sx, pack.t(), swn, bn, dtype)
+            cases.append((
+                "w8a8_matmul", f"{dn} {label} M={m} [{k}->{n}]",
+                lambda a=args: int8_gemm.w8a8_matmul(*a),
+                lambda a=args: int8_gemm.w8a8_matmul_plain(*a), 10))
     return cases
 
 
@@ -152,17 +254,22 @@ def kernel_phase(dev):
     import torch
     g = torch.Generator().manual_seed(SEED)
     records = []
-    for name, label, kern, plain in kernel_cases(dev, g):
+    for name, label, kern, plain, reps in kernel_cases(dev, g):
         got = kern()
         want = plain()
         torch.cuda.synchronize()
-        dtype = str(want.dtype).removeprefix("torch.")
-        err, rel = rel_err(got, want)
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        ok = rel <= TOL[dtype] and bool(torch.isfinite(got).all())
-        log(f"  {name:17s} {label:38s} max_abs_err {err:.3e} (tol "
-            f"{TOL[dtype]:g} rel) kernel {ms * 1e3:9.2f} us  plain "
-            f"{plain_ms * 1e3:9.2f} us  {'ok' if ok else 'FAIL'}")
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [
+            (got, want)]
+        dtype = str(pairs[0][1].dtype).removeprefix("torch.")
+        errs = [rel_err(a, b) for a, b in pairs]
+        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
+        ms = cuda_ms(kern, reps, warmup=2)
+        plain_ms = cuda_ms(plain, reps, warmup=2)
+        ok = rel <= TOL[dtype] and finite
+        log(f"  {name:20s} {label:46s} max_abs_err {err:.3e} (tol "
+            f"{TOL[dtype]:g} rel) kernel {ms * 1e3:10.2f} us  plain "
+            f"{plain_ms * 1e3:10.2f} us  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} {label}: kernel disagrees with "
                                  f"its plain version ({err:.3e})")
@@ -209,17 +316,24 @@ def decode_steps(rows, sep_id: int) -> int:
     return rows.shape[1] - 1
 
 
-def counts():
+def wrappers() -> dict:
+    """Each kernel's wrapper, by the kernel's name in KERNELS."""
     from rtvc_tpu_torch.ops import attention, int8_gemm, layernorm
-    return {"window_attention": attention.window_attention.launches,
-            "layer_norm": layernorm.layer_norm.launches,
-            "w8_matmul": int8_gemm.w8_matmul.launches}
+    return {"window_attention": attention.window_attention,
+            "layer_norm": layernorm.layer_norm,
+            "w8_matmul": int8_gemm.w8_matmul,
+            "flash_attention": attention.flash_attention,
+            "blhd_attention": attention.blhd_attention,
+            "fused_add_layer_norm": layernorm.fused_add_layer_norm,
+            "w8a8_matmul": int8_gemm.w8a8_matmul}
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 def reset_counts() -> None:
-    from rtvc_tpu_torch.ops import attention, int8_gemm, layernorm
-    for fn in (attention.window_attention, layernorm.layer_norm,
-               int8_gemm.w8_matmul):
+    for fn in wrappers().values():
         fn.launches = 0
 
 
@@ -370,6 +484,210 @@ def slice_phase(dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the frozen teacher
+# ---------------------------------------------------------------------------
+
+def timed_run(label: str, fn):
+    """One warm-up call of ``fn``, then the launch counts reset, one call
+    between CUDA events, the counts read. Returns (result, ms, counts)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    launched = counts()
+    ms = ev[0].elapsed_time(ev[1])
+    log(f"  {label:18s} {ms:10.3f} ms  launches {launched}")
+    return out, ms, launched
+
+
+def check_launches(label: str, launched: dict, want: dict) -> None:
+    bad = {k: (launched[k], n) for k, n in want.items() if launched[k] != n}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, want) {bad}")
+
+
+def check_tensor(label: str, t, shape) -> None:
+    import torch
+    if tuple(t.shape) != tuple(shape):
+        raise AssertionError(f"{label}: shape {tuple(t.shape)} != {shape}")
+    if not bool(torch.isfinite(t).all()):
+        raise AssertionError(f"{label}: non-finite values")
+
+
+def teacher_f32_check(frames, captions, dev) -> dict:
+    """The depth-cut float32 teacher (2 CLIP blocks, 2 joint layers, full
+    widths) on the card (kernels, TF32 off) against the same model on the
+    CPU (plain versions), batch 1. The W8A8 copy is left out: once one
+    activation rounds to the neighbouring int8 value on one side, the next
+    layers' activations differ by ~1e-3 and many more round apart, so the
+    two sides drift to the quantization error itself (1.8e-2 of the
+    largest logit at 2 blocks + 2 layers); :func:`w8a8_sites_check` holds
+    K7 in the model instead."""
+    import torch
+    from rtvc_tpu_torch.config import GITConfig, clip_vit_l14_config
+    from rtvc_tpu_torch.models.git_teacher import GITTeacher, random_init_
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(SEED + 2)
+    cut = GITConfig(clip=clip_vit_l14_config(layers=2), num_layers=2)
+    cpu_model = random_init_(GITTeacher(cut), g).eval()
+    card = copy.deepcopy(cpu_model).to(dev)
+    fr, caps = frames[:1].float().cpu(), captions[:1].cpu()
+    out = {}
+    with torch.inference_mode():
+        want = cpu_model.forward_output_logits(fr, caps)
+        got = card.forward_output_logits(fr.to(dev), caps.to(dev))
+    for what, i in (("visual", 1), ("logits", 0)):
+        err, rel = rel_err(got[i].cpu(), want[i])
+        log(f"  f32 card vs cpu teacher {what:7s} max_abs_err {err:.3e} "
+            f"(rel {rel:.3e}, tol {SLICE_TOL:g})")
+        if not rel <= SLICE_TOL:
+            raise AssertionError(f"f32 teacher {what}: card and CPU disagree")
+        out[f"f32_teacher_{what}_max_abs_err"] = err
+        out[f"f32_teacher_{what}_rel_err"] = rel
+    return out
+
+
+def w8a8_sites_check(model, frames, captions) -> dict:
+    """One more W8A8 forward, each ``QuantLinear``'s output (a K7 launch at
+    the main path's shape) held against the plain version on the same
+    input on the card, with the TOL rule."""
+    import torch
+    from rtvc_tpu_torch.ops.int8_gemm import w8a8_matmul_plain
+    from rtvc_tpu_torch.ops.quantization import (QuantLinear,
+                                                 quantize_activations)
+    worst = {}
+
+    def hook(mod, inputs, out):
+        x = inputs[0].reshape(-1, inputs[0].shape[-1])
+        xq, sx = quantize_activations(x)
+        want = w8a8_matmul_plain(xq, sx.reshape(-1), mod.weight_q.t(),
+                                 mod.weight_scale, mod.bias, x.dtype)
+        err, rel = rel_err(out.reshape(want.shape), want)
+        site = (f"{str(x.dtype).removeprefix('torch.')} M={x.shape[0]} "
+                f"[{x.shape[1]}->{want.shape[1]}]")
+        worst[site] = max(worst.get(site, (0.0, 0.0)), (rel, err))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, QuantLinear)]
+    try:
+        with torch.inference_mode():
+            model.forward_output_logits(frames, captions, TAPS)
+    finally:
+        for h in hooks:
+            h.remove()
+    for site, (rel, err) in sorted(worst.items()):
+        tol = TOL[site.split()[0]]
+        log(f"  w8a8 site {site:33s} max_abs_err {err:.3e} (rel {rel:.3e}, "
+            f"tol {tol:g})")
+        if not rel <= tol:
+            raise AssertionError(f"w8a8 site {site}: K7 disagrees with its "
+                                 f"plain version")
+    return {"w8a8_sites": len(hooks), "w8a8_site_shapes": len(worst),
+            "w8a8_sites_max_abs_err": max(e for _, e in worst.values())}
+
+
+def teacher_phase(dev) -> dict:
+    import torch
+    from rtvc_tpu_torch.config import cfg
+    from rtvc_tpu_torch.decode import teacher_beam, teacher_kd_targets
+    from rtvc_tpu_torch.models.git_teacher import (random_init_,
+                                                   teacher_from_config)
+    from rtvc_tpu_torch.ops.preprocess import clip_preprocess
+    from rtvc_tpu_torch.ops.quantization import QuantLinear, quantize_teacher_
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    teacher = random_init_(teacher_from_config(cfg), g).eval().to(dev)
+    tc = teacher.config
+    blocks, joint, vocab = tc.clip.layers, tc.num_layers, tc.vocab_size
+    tokens = FRAMES * ((tc.clip.image_size // tc.clip.patch_size) ** 2 + 1)
+    windows = make_windows(g).to(dev)
+    frames = clip_preprocess(windows.reshape((-1,) + windows.shape[2:]))
+    frames = frames.reshape((WINDOWS, FRAMES) + frames.shape[1:])
+    captions = torch.randint(1000, vocab, (WINDOWS, CAPTION_LEN),
+                             generator=g)
+    captions[:, 0] = 101
+    captions = captions.to(dev)
+    result = {"launches": {}}
+
+    def add(launched):
+        for k, n in launched.items():
+            result["launches"][k] = result["launches"].get(k, 0) + n
+
+    # K2: ln_pre, ln_1 per block, ln_post; visual_ln, emb_norm, two per layer
+    norms = blocks + 2 + 2 + 2 * joint
+    forward_counts = {"blhd_attention": blocks, "fused_add_layer_norm": blocks,
+                      "flash_attention": joint, "layer_norm": norms}
+    quant = quantize_teacher_(copy.deepcopy(teacher))
+    packs = sum(isinstance(m, QuantLinear) for m in quant.modules())
+    outs = {}
+    for mode, model in (("forward", teacher), ("forward_w8a8", quant)):
+        with torch.inference_mode():
+            out, ms, launched = timed_run(mode, lambda: (
+                model.forward_output_logits(frames, captions, TAPS)))
+        check_launches(mode, launched, dict(
+            forward_counts, w8a8_matmul=packs if model is quant else 0))
+        add(launched)
+        logits, visual, hidden, taps = out
+        check_tensor(f"{mode} logits", logits, (WINDOWS, CAPTION_LEN, vocab))
+        check_tensor(f"{mode} visual", visual,
+                     (WINDOWS, tokens, tc.visual_feature_size))
+        for i, h in enumerate(hidden):
+            check_tensor(f"{mode} hidden {i}", h,
+                         (WINDOWS, tokens + CAPTION_LEN, tc.hidden_size))
+        for i, t in enumerate(taps):
+            check_tensor(f"{mode} tap {i}", t,
+                         (WINDOWS, FRAMES, tc.clip.width))
+        if len(hidden) != joint or len(taps) != len(TAPS):
+            raise AssertionError(f"{mode}: {len(hidden)} hidden states, "
+                                 f"{len(taps)} taps")
+        outs[mode] = logits.float()
+        result[f"{mode}_b{WINDOWS}_ms"] = ms
+    agree = float((outs["forward"].argmax(-1)
+                   == outs["forward_w8a8"].argmax(-1)).float().mean())
+    gap = rel_err(outs["forward_w8a8"], outs["forward"])[1]
+    log(f"  w8a8 vs bf16 logits: argmax agreement {agree:.4f}, max gap "
+        f"{gap:.3e} of max(1, max|logit|)")
+    result.update(w8a8_argmax_agreement=agree, w8a8_rel_gap=gap)
+    result.update(w8a8_sites_check(quant, frames, captions))
+    del quant, outs
+
+    def beam_and_targets():
+        out = teacher_beam(teacher, frames[:BEAM_BATCH], beam_size=BEAMS,
+                           max_steps=BEAM_STEPS)
+        return out, teacher_kd_targets(
+            out, torch.full((BEAM_BATCH,), BEAM_STEPS - 1))
+
+    (beam, kd), ms, launched = timed_run("teacher_beam", beam_and_targets)
+    steps = beam.num_steps
+    check_launches("teacher_beam", launched, {
+        "blhd_attention": blocks, "fused_add_layer_norm": blocks,
+        "flash_attention": joint, "w8a8_matmul": 0,
+        "layer_norm": blocks + 2 + (1 + 2 * joint) * (1 + steps)})
+    add(launched)
+    preds = beam.predictions
+    check_tensor("beam predictions", preds, (BEAM_BATCH, BEAM_STEPS))
+    if not (bool((preds[:, 0] == 101).all())
+            and bool(((preds >= 0) & (preds < vocab)).all())):
+        raise AssertionError(f"beam predictions {preds.tolist()}")
+    check_tensor("beam logits", beam.logits,
+                 (BEAM_STEPS - 1, BEAM_BATCH, BEAMS, vocab))
+    check_tensor("beam logprobs", beam.logprobs, (BEAM_BATCH,))
+    check_tensor("kd targets", kd[0], (BEAM_BATCH, BEAM_STEPS - 1, vocab))
+    log(f"  teacher_beam {steps} steps, predictions {preds.tolist()}, "
+        f"logprobs {beam.logprobs.tolist()}")
+    result.update(beam_ms=ms, beam_steps=steps,
+                  beam_predictions=preds.tolist())
+    result.update(teacher_f32_check(frames, captions, dev))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measurement to this "
@@ -395,25 +713,31 @@ def main(argv=None) -> int:
     records = kernel_phase(dev)
     log("[slice] full-width student, caption steps")
     sl = slice_phase(dev)
+    log("[teacher] full-width GIT-Large teacher, bf16")
+    te = teacher_phase(dev)
 
     # the row per kernel: its largest error over all cases; its times at the
-    # main path's heaviest bf16 batch-8 case
+    # main path's heaviest bf16 case
     primary = {"window_attention": "bfloat16 stage1 b8",
                "layer_norm": "bfloat16 [200,576]",
-               "w8_matmul": "bfloat16 M=8"}
+               "w8_matmul": "bfloat16 M=8",
+               "flash_attention": "bfloat16 joint",
+               "blhd_attention": "bfloat16 clip",
+               "fused_add_layer_norm": "bfloat16 [",
+               "w8a8_matmul": "bfloat16 clip fc"}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in records if r["name"] == name]
         head = next(r for r in mine if r["case"].startswith(primary[name]))
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sl["launches"][name],
+            launches=sl["launches"][name] + te["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=head["ms"], plain_ms=head["plain_ms"]))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(device=smi, kernels=kernels, cases=records,
-                           slice=sl), f, indent=1)
+                           slice=sl, teacher=te), f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

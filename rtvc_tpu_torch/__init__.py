@@ -1,24 +1,27 @@
-"""rtvc_tpu_torch — the caption step of ``rtvc_tpu`` in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (``sm_90a``).
+"""rtvc_tpu_torch — the caption step and the frozen GIT-Large teacher of
+``rtvc_tpu`` in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
+(``sm_90a``).
 
 The JAX package ``rtvc_tpu`` is the reference; every module here has a
 counterpart of the same name there:
 
-- ``config``            ➜ ``rtvc_tpu/config.py`` + ``models/tinyvit.py``
+- ``config``            ➜ ``rtvc_tpu/config.py`` + the model configs'
                           defaults (copied: importing ``rtvc_tpu`` imports jax)
 - ``ops.preprocess``    ➜ ``rtvc_tpu/ops/preprocess.py``
-- ``ops.layernorm``     ➜ ``rtvc_tpu/ops/layernorm.py`` (kernel K2)
-- ``ops.attention``     ➜ ``rtvc_tpu/ops/attention.py`` (kernel K1)
+- ``ops.layernorm``     ➜ ``rtvc_tpu/ops/layernorm.py`` (kernels K2, K6)
+- ``ops.attention``     ➜ ``rtvc_tpu/ops/attention.py`` (kernels K1, K4, K5)
 - ``ops.quantization``  ➜ ``rtvc_tpu/ops/quantization.py``
-- ``ops.int8_gemm``     ➜ ``rtvc_tpu/ops/int8_gemm.py`` (kernel K3)
-- ``models.*``          ➜ ``rtvc_tpu/models/*`` (TinyViT, student, bridge)
-- ``decode``            ➜ ``rtvc_tpu/decode.py`` (greedy)
+- ``ops.int8_gemm``     ➜ ``rtvc_tpu/ops/int8_gemm.py`` (kernels K3, K7)
+- ``models.*``          ➜ ``rtvc_tpu/models/*`` (TinyViT, student, CLIP
+                          ViT, GIT teacher, weight bridge)
+- ``decode``            ➜ ``rtvc_tpu/decode.py`` (greedy, teacher beam)
 - ``serving``           ➜ ``rtvc_tpu/serving.py`` (the caption step)
 
-Kernels live in ``csrc/`` and are compiled by ``_build`` with ``nvcc`` at
-their first launch. A wrapper given CPU tensors runs its plain PyTorch
-version; given CUDA tensors it launches the kernel or raises. This package
-imports neither jax, flax nor cv2.
+``profile_teacher`` has no counterpart: it prints the teacher's device time
+by op on a card. Kernels live in ``csrc/`` and are compiled by ``_build``
+with ``nvcc`` at their first launch. A wrapper given CPU tensors runs its
+plain PyTorch version; given CUDA tensors it launches the kernel or raises.
+This package imports neither jax, flax nor cv2.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """Build the CUDA kernels in ``csrc/`` into one shared library and load it.
 
-Every ``csrc/*.cu`` is compiled in one ``nvcc`` call for ``sm_90a`` into
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``, all
+started together, and the objects are linked into one library in
 ``build/`` at the repository root, named by a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
 The kernels have a plain C interface (pointers, sizes and the stream) and
@@ -22,17 +23,23 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry point -> argument types (every pointer and the stream as void*)
 SIGNATURES = {
     "rtvc_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _F, _I, _I, _P],
     "rtvc_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "rtvc_add_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rtvc_w8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rtvc_flash_attention": [_P] * 5 + [_I] * 5 + [_L] * 12
+                            + [_F, _I, _I, _I, _P],
+    "rtvc_blhd_attention": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _I, _P],
+    "rtvc_w8a8_matmul": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -67,13 +74,31 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"objects.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources():
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src.stem}.o"),
+               str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    failed = []
+    for cmd, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{log}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+            *(str(work / f"{src.stem}.o") for src in sources())]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

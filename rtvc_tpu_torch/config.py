@@ -7,9 +7,13 @@ jax. A test holds every field here equal to its JAX counterpart:
 - :class:`StudentConfig` ➜ ``rtvc_tpu/config.py`` ``StudentConfig``;
 - :class:`TinyViTConfig`, :func:`tiny_vit_21m_config` ➜
   ``rtvc_tpu/models/tinyvit.py`` (``dtype`` as a torch dtype);
-- :class:`Config` ➜ the fields of ``rtvc_tpu.config.Config`` the student is
-  built from: ``tpu.compute_dtype``, ``data.num_frames`` and the teacher
-  widths its distillation heads project to.
+- :class:`CLIPViTConfig`, :func:`clip_vit_l14_config` ➜
+  ``rtvc_tpu/models/clip_vit.py``; :class:`GITConfig` ➜
+  ``rtvc_tpu/models/git_teacher.py``; :class:`TeacherConfig` ➜
+  ``rtvc_tpu/config.py`` ``TeacherConfig`` (``dtype`` as a torch dtype);
+- :class:`Config` ➜ the fields of ``rtvc_tpu.config.Config`` the student
+  and the teacher are built from: ``student``, ``teacher``,
+  ``tpu.compute_dtype``, ``tpu.quantize_teacher`` and ``data.num_frames``.
 """
 
 from __future__ import annotations
@@ -58,13 +62,63 @@ def tiny_vit_21m_config(**overrides) -> TinyViTConfig:
 
 
 @dataclass(frozen=True)
+class CLIPViTConfig:
+    image_size: int = 224
+    patch_size: int = 14
+    width: int = 1024
+    layers: int = 24
+    heads: int = 16
+    dtype: torch.dtype = torch.float32
+    quantized: bool = False  # W8A8 Linears (frozen-teacher inference only)
+
+
+def clip_vit_l14_config(**overrides) -> CLIPViTConfig:
+    """CLIP ViT-L/14 at 224 px: 257 tokens of width 1024 (the teacher's
+    image tower)."""
+    return dataclasses.replace(CLIPViTConfig(), **overrides)
+
+
+@dataclass(frozen=True)
+class GITConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 6
+    attention_heads: int = 12
+    feedforward_size: int = 3072
+    visual_feature_size: int = 1024
+    max_caption_length: int = 1024
+    num_image_with_embedding: int = 6
+    dropout: float = 0.1
+    clip: CLIPViTConfig = clip_vit_l14_config()
+    dtype: torch.dtype = torch.float32
+    quantized: bool = False  # W8A8 textual-head Linears
+
+
+@dataclass(frozen=True)
+class TeacherConfig:
+    param_path: str = "data/teacher_configs/GIT_LARGE_MSRVTT/parameter.yaml"
+    pretrained_weights: str = "results/model.pt"
+    num_image_with_embedding: int = 6
+    visual_feature_size: int = 1024
+    image_encoder_type: str = "CLIPViT_L_14"
+    hidden_size: int = 768
+    num_layers: int = 6
+    attention_heads: int = 12
+    feedforward_size: int = 3072
+    vocab_size: int = 30522
+    max_caption_length: int = 1024
+    beam_size: int = 4
+    max_steps: int = 15
+    length_penalty: float = 0.6
+
+
+@dataclass(frozen=True)
 class Config:
     student: StudentConfig = field(default_factory=StudentConfig)
+    teacher: TeacherConfig = field(default_factory=TeacherConfig)
     compute_dtype: str = "bfloat16"      # TpuConfig.compute_dtype
+    quantize_teacher: bool = False       # TpuConfig.quantize_teacher
     num_frames: int = 6                  # DataConfig.num_frames
-    teacher_visual_dim: int = 1024       # TeacherConfig.visual_feature_size
-    teacher_num_frames: int = 6          # TeacherConfig.num_image_with_embedding
-    teacher_hidden: int = 768            # TeacherConfig.hidden_size
 
     @property
     def dtype(self) -> torch.dtype:

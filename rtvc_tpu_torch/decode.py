@@ -1,9 +1,14 @@
-"""Greedy captioning over the student's KV cache.
+"""Greedy captioning over the student's KV cache, and the teacher's beam
+search.
 
-Counterpart of ``student_greedy`` in ``rtvc_tpu/decode.py`` (reference
-model.py:156-187). The JAX ``lax.while_loop`` becomes a Python loop over
-:meth:`StudentCandidateV1.decode_step` with caches preallocated at
-``1 + max_len`` slots. The semantics are the reference's:
+Counterpart of ``student_greedy``, ``teacher_beam`` and
+``teacher_kd_targets`` in ``rtvc_tpu/decode.py``. Each JAX
+``lax.while_loop`` becomes a Python loop over the model's ``decode_step``
+with preallocated caches; each stop test reads one boolean back from the
+device per token.
+
+``student_greedy`` (reference model.py:156-187) runs the student with
+caches of ``1 + max_len`` slots. The semantics are the reference's:
 
 - the self-attention key mask is ``(pos <= i) & (tokens != 0)``: a
   generated pad id 0 drops out of later steps, as the reference's
@@ -11,15 +16,21 @@ model.py:156-187). The JAX ``lax.while_loop`` becomes a Python loop over
 - decoding stops early only when every row emits SEP at the same step;
   rows that ended earlier keep generating.
 
-The stop test reads one boolean back from the device per token.
+``teacher_beam`` is GIT's beam search as the reference modified it
+(model.py:465-678), without sampling: beam 4, 15 steps, length penalty
+0.6 applied when a hypothesis is added, a BeamHypotheses pool keeping the
+best hypothesis with the old-HF ``is_done`` rule, EOS candidates added as
+hypotheses only while the next beam set is unfilled, forced adds at the
+last step, pad = EOS, and every step's raw logits kept for distillation.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .models.git_teacher import Cache, GITTeacher
 from .models.student import StudentCandidateV1
 
 
@@ -46,3 +57,143 @@ def student_greedy(model: StudentCandidateV1, frames: torch.Tensor,
         if bool((nxt == model.sep_token_id).all()):
             break
     return tokens
+
+
+def _gather_cache(caches: List[Cache], rows: torch.Tensor) -> List[Cache]:
+    return [{k: v[rows] for k, v in cache.items()} for cache in caches]
+
+
+class TeacherBeamOutput(NamedTuple):
+    predictions: torch.Tensor  # [B, max_steps]: SOS first, EOS-padded
+    logprobs: torch.Tensor     # [B] length-penalised best-hypothesis score
+    logits: torch.Tensor       # [max_steps - 1, B, beams, V] raw per step
+    num_steps: int             # decode iterations run
+
+
+@torch.inference_mode()
+def teacher_beam(model: GITTeacher, frames: torch.Tensor, *,
+                 beam_size: int = 4, max_steps: int = 15,
+                 per_node_beam_size: int = 2, length_penalty: float = 0.6,
+                 repetition_penalty: float = 1.0) -> TeacherBeamOutput:
+    """GIT beam search (``do_sample=False``) over ``frames [B, F, H, W, 3]``.
+    Candidates come from a hierarchical top-k: the top m = beams ×
+    per-node candidates of each beam's raw (penalised) logits, normalised
+    by the row's logsumexp plus the beam score, then the top m of the pooled
+    rows, ties in beam-major order, as JAX selects them."""
+    nb, m = beam_size, per_node_beam_size * beam_size
+    sos, eos = 101, 102  # BERT CLS / SEP; EOS doubles as the pad id
+    vocab = model.config.vocab_size
+
+    visual = model.encode_only(frames)
+    b, prefix = visual.shape[:2]
+    dev = visual.device
+    caches = model.init_cache(visual.repeat_interleave(nb, dim=0), max_steps)
+
+    input_ids = torch.full((b * nb, max_steps), sos, dtype=torch.int32,
+                           device=dev)
+    beam_scores = torch.full((b, nb), -1e9, device=dev)
+    beam_scores[:, 0] = 0.0
+    beam_scores = beam_scores.reshape(-1)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    hyp_best = torch.full((b,), -1e5, device=dev)
+    hyp_seq = torch.full((b, max_steps), eos, dtype=torch.int32, device=dev)
+    hyp_len = torch.ones(b, dtype=torch.int32, device=dev)
+    hyp_count = torch.zeros(b, dtype=torch.int32, device=dev)
+    logits_buf = torch.zeros((max_steps - 1, b * nb, vocab), device=dev)
+    first = torch.arange(b, device=dev) * nb
+    slots = torch.arange(1, nb + 1, device=dev)
+
+    cur_len = 1
+    while cur_len < max_steps and not bool(done.all()):
+        raw, caches = model.decode_step(input_ids[:, cur_len - 1],
+                                        cur_len - 1, caches, prefix)
+        raw = raw.float()                                   # [B*nb, V]
+        logits_buf[cur_len - 1] = raw
+
+        scores_tok = raw
+        if repetition_penalty != 1.0:  # CTRL-style, on generated tokens
+            present = torch.zeros_like(raw, dtype=torch.bool).scatter_(
+                1, input_ids[:, :cur_len].long(), True)
+            penalized = torch.where(raw < 0, raw * repetition_penalty,
+                                    raw / repetition_penalty)
+            scores_tok = torch.where(present, penalized, raw)
+
+        top_raw, top_word = torch.topk(scores_tok, m, dim=-1)
+        lse = torch.logsumexp(scores_tok, dim=-1, keepdim=True)
+        pooled = (top_raw - lse + beam_scores[:, None]).reshape(b, nb * m)
+        next_scores, pick = torch.topk(pooled, m, dim=1)    # [B, m]
+        word_id = torch.gather(top_word.reshape(b, nb * m), 1, pick)
+        beam_id = pick // m
+        is_eos = word_id == eos
+
+        # the pool's done test comes before this step's candidates
+        pool_done = (hyp_count >= 1) & (
+            hyp_best >= next_scores[:, 0] / (max_steps ** length_penalty))
+        done = done | pool_done
+
+        at_max = cur_len + 1 == max_steps
+        sel = ~is_eos & (not at_max)
+        cum = torch.cumsum(sel.int(), dim=1)
+        processed = (cum - sel.int()) < nb  # before the next beams fill up
+
+        # hypothesis adds: EOS candidates, or every candidate at the end
+        hypable = processed & (is_eos | at_max) & ~done[:, None]
+        cand = torch.where(hypable, next_scores / (cur_len ** length_penalty),
+                           -torch.inf)
+        best_cand = torch.argmax(cand, dim=1, keepdim=True)
+        best_score = torch.gather(cand, 1, best_cand)[:, 0]
+        improves = torch.isfinite(best_score) & (best_score > hyp_best)
+        src_rows = first + torch.gather(beam_id, 1, best_cand)[:, 0]
+        hyp_seq = torch.where(improves[:, None], input_ids[src_rows], hyp_seq)
+        hyp_len = torch.where(improves, cur_len, hyp_len)
+        hyp_best = torch.where(improves, best_score, hyp_best)
+        hyp_count = hyp_count + hypable.sum(dim=1, dtype=torch.int32)
+
+        # next beams: the first nb non-EOS candidates, in score order
+        beam_rank = torch.where(sel, cum, nb + 1)
+        slot_idx = torch.argmax(
+            (beam_rank[:, None, :] == slots[None, :, None]).int(), dim=2)
+        has_slot = torch.gather(beam_rank, 1, slot_idx) <= nb
+        pad_slot = ~has_slot | done[:, None]  # → score 0, EOS, beam 0
+        new_scores = torch.where(pad_slot, 0.0,
+                                 torch.gather(next_scores, 1, slot_idx))
+        new_words = torch.where(pad_slot, eos,
+                                torch.gather(word_id, 1, slot_idx))
+        new_beams = torch.where(pad_slot, 0,
+                                torch.gather(beam_id, 1, slot_idx))
+
+        rows = (first[:, None] + new_beams).reshape(-1)
+        input_ids = input_ids[rows]
+        input_ids[:, cur_len] = new_words.reshape(-1).int()
+        caches = _gather_cache(caches, rows)
+        beam_scores = new_scores.reshape(-1)
+        cur_len += 1
+
+    pos = torch.arange(max_steps, device=dev)[None, :]
+    decoded = torch.where(pos < hyp_len[:, None], hyp_seq, eos)
+    decoded = torch.where(pos == hyp_len[:, None], eos, decoded)
+    return TeacherBeamOutput(
+        predictions=decoded.int(), logprobs=hyp_best,
+        logits=logits_buf.reshape(max_steps - 1, b, nb, vocab),
+        num_steps=cur_len - 1)
+
+
+def teacher_kd_targets(out: TeacherBeamOutput,
+                       captions_text_len: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam-consensus teacher distributions (reference model.py:762-793):
+    for each generated word, the full-vocab logits of the beam whose logit
+    at that word is largest. Returns (``[B, S, V]`` logits, ``[B, S]``
+    validity mask), S the steps the logit buffer holds."""
+    steps, b, nb, vocab = out.logits.shape
+    words = out.predictions[:, 1:steps + 1].long()          # [B, S]
+    step_logits = out.logits.permute(1, 0, 2, 3)            # [B, S, nb, V]
+    word_logit = torch.gather(
+        step_logits, 3, words[:, :, None, None].expand(b, steps, nb, 1))
+    best_beam = torch.argmax(word_logit[..., 0], dim=-1)    # [B, S]
+    teacher = torch.gather(
+        step_logits, 2,
+        best_beam[:, :, None, None].expand(b, steps, 1, vocab))[:, :, 0]
+    n = torch.clamp(captions_text_len.to(words.device), max=steps)
+    valid = torch.arange(steps, device=words.device)[None, :] < n[:, None]
+    return teacher, valid

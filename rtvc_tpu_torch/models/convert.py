@@ -1,9 +1,14 @@
-"""JAX parameter trees → the port's state dict (the weight bridge).
+"""JAX parameter trees → the port's state dicts (the weight bridge).
 
-The inverse of ``rtvc_tpu.models.convert.student_params_from_torch``: it
-takes the JAX student's ``params`` and ``batch_stats`` (nested dicts of
-arrays) and returns the reference's torch state dict, which
-:class:`~rtvc_tpu_torch.models.student.StudentCandidateV1` loads. Dense
+:func:`student_state_dict_from_jax` is the inverse of
+``rtvc_tpu.models.convert.student_params_from_torch``: it takes the JAX
+student's ``params`` and ``batch_stats`` (nested dicts of arrays) and
+returns the reference's torch state dict, which
+:class:`~rtvc_tpu_torch.models.student.StudentCandidateV1` loads.
+:func:`teacher_state_dict_from_jax` is the inverse of
+``git_teacher_params_from_torch``: the GIT ``model.pt`` keys that
+:class:`~rtvc_tpu_torch.models.git_teacher.GITTeacher` loads, with each
+packed ``qkv`` split back into the reference's query, key and value. Dense
 kernels ``[in, out]`` become Linear weights ``[out, in]``; HWIO conv
 kernels become OIHW; LayerNorm/BatchNorm ``scale`` becomes ``weight``; BN
 ``mean``/``var`` become ``running_mean``/``running_var``; the packed
@@ -69,4 +74,67 @@ def student_state_dict_from_jax(params: Mapping[str, Any],
     out: Dict[str, torch.Tensor] = {}
     _walk(params, [], out)
     _walk(batch_stats, [], out)
+    return out
+
+
+def teacher_state_dict_from_jax(params: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX ``GITTeacher`` params → the reference ``model.pt`` state dict."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(dst: str, tree: Mapping[str, Any]) -> None:
+        for key, value in tree.items():
+            out[f"{dst}.{_LEAF_NAMES.get(key, key)}"] = _leaf(key, value)
+
+    def split_qkv(names, tree: Mapping[str, Any]) -> None:
+        for key, value in tree.items():
+            parts = np.split(np.asarray(value), 3, axis=-1)
+            for name, part in zip(names, parts):
+                put(name, {key: part})
+
+    enc = params["image_encoder"]
+    put("image_encoder.conv1", enc["conv1"])
+    for key in ("class_embedding", "positional_embedding"):
+        out[f"image_encoder.{key}"] = _leaf(key, enc[key])
+    for key in ("ln_pre", "ln_post"):
+        put(f"image_encoder.{key}", enc[key])
+    i = 0
+    while f"resblock_{i}" in enc:
+        blk = enc[f"resblock_{i}"]
+        base = f"image_encoder.transformer.resblocks.{i}"
+        for src, dst in (("ln_1", "ln_1"), ("ln_2", "ln_2"),
+                         ("mlp_fc", "mlp.c_fc"), ("mlp_proj", "mlp.c_proj")):
+            put(f"{base}.{dst}", blk[src])
+        put(f"{base}.attn.out_proj", blk["attn"]["out_proj"])
+        qkv = blk["attn"]["qkv"]
+        out[f"{base}.attn.in_proj_weight"] = _leaf("kernel", qkv["kernel"])
+        out[f"{base}.attn.in_proj_bias"] = _leaf("bias", qkv["bias"])
+        i += 1
+    i = 0
+    while f"img_temporal_embedding_{i}" in params:
+        out[f"img_temperal_embedding.{i}"] = _leaf(
+            "embedding", np.asarray(params[f"img_temporal_embedding_{i}"])
+            .reshape(1, 1, -1))
+        i += 1
+
+    tx, t = params["textual"], "textual"
+    for src, dst in (("visual_projection", "visual_projection.0"),
+                     ("visual_ln", "visual_projection.1"),
+                     ("word_embeddings", "embedding.words"),
+                     ("position_embeddings", "embedding.positions"),
+                     ("emb_norm", "embedding.layer_norm"),
+                     ("output", "output")):
+        put(f"{t}.{dst}", tx[src])
+    i = 0
+    while f"layer_{i}" in tx:
+        layer, base = tx[f"layer_{i}"], f"{t}.transformer.encoder.layer.{i}"
+        split_qkv([f"{base}.attention.self.{p}"
+                   for p in ("query", "key", "value")], layer["qkv"])
+        for src, dst in (("attn_out", "attention.output.dense"),
+                         ("attn_norm", "attention.output.LayerNorm"),
+                         ("inter", "intermediate.dense"),
+                         ("out", "output.dense"),
+                         ("out_norm", "output.LayerNorm")):
+            put(f"{base}.{dst}", layer[src])
+        i += 1
     return out

@@ -1,4 +1,5 @@
-"""Shared layers: the sinusoidal positional encoding and TinyViT's MLP.
+"""Shared layers: the sinusoidal positional encoding, TinyViT's MLP, and
+the key mapping of packed Linears.
 
 Counterpart of ``rtvc_tpu/models/layers.py``. This package only runs
 inference, where ``DropPath`` and dropout are the identity, so neither
@@ -6,6 +7,8 @@ exists here.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -59,3 +62,28 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(self.norm(x)), self.gelu_approximate))
+
+
+def save_under_reference_keys(module: nn.Module, attr: str,
+                              keys: Dict[str, Sequence[str]]) -> None:
+    """Save and load the Linear ``module.<attr>`` under the reference
+    checkpoint's names. ``keys`` maps ``"weight"`` and ``"bias"`` to their
+    key names relative to ``module``; with three names the tensor is the
+    q|k|v packing of three Linears, split along dim 0 on save and
+    concatenated on load. A quantized ``attr`` keeps its ``weight_q`` and
+    ``weight_scale`` keys (only its bias is split)."""
+    def save(mod, state, prefix, local_metadata):
+        for leaf, names in keys.items():
+            packed = state.pop(f"{prefix}{attr}.{leaf}", None)
+            if packed is not None:
+                for name, part in zip(names, packed.chunk(len(names))):
+                    state[prefix + name] = part
+
+    def load(mod, state, prefix, *args):
+        for leaf, names in keys.items():
+            if all(prefix + name in state for name in names):
+                state[f"{prefix}{attr}.{leaf}"] = torch.cat(
+                    [state.pop(prefix + name) for name in names])
+
+    module.register_state_dict_post_hook(save)
+    module.register_load_state_dict_pre_hook(load)

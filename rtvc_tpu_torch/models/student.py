@@ -247,9 +247,10 @@ def student_from_config(cfg: Config, input_size: int = 224
         num_decoder_layers=s.num_decoder_layers, vocab_size=s.vocab_size,
         cls_token_id=s.cls_token_id, sep_token_id=s.sep_token_id,
         max_pos_len=s.max_pos_len, encoder_config=enc, input_size=input_size,
-        num_frames=cfg.num_frames, teacher_visual_dim=cfg.teacher_visual_dim,
-        teacher_num_tokens=cfg.teacher_num_frames * 257,
-        teacher_hidden=cfg.teacher_hidden)
+        num_frames=cfg.num_frames,
+        teacher_visual_dim=cfg.teacher.visual_feature_size,
+        teacher_num_tokens=cfg.teacher.num_image_with_embedding * 257,
+        teacher_hidden=cfg.teacher.hidden_size)
 
 
 @torch.no_grad()

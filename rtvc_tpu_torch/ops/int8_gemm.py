@@ -1,11 +1,16 @@
-"""Weight-only int8 GEMV for decode rows: kernel K3 and its plain version.
+"""Int8 GEMMs: kernels K3 and K7 and their plain versions.
 
-Counterpart of ``w8_matmul`` / ``w8_dense`` in
-``rtvc_tpu/ops/int8_gemm.py``; the CUDA kernel is ``csrc/w8_matmul.cu``.
-It runs the student's 576→30522 vocab projection on the ``vocab_int8``
-caption step. Unlike the JAX function, the output dtype is the dtype of
-``x`` (the decode step asks for exactly that). The teacher's W8A8 GEMM
-(``w8a8_matmul``) is not on the caption step and is not ported yet.
+Counterpart of ``rtvc_tpu/ops/int8_gemm.py``:
+
+- :func:`w8_matmul` / :func:`w8_dense` (K3, ``csrc/w8_matmul.cu``): the
+  weight-only int8 GEMV of the student's 576→30522 vocab projection on the
+  ``vocab_int8`` caption step. Unlike the JAX function, the output dtype
+  is the dtype of ``x`` (the decode step asks for exactly that);
+- :func:`w8a8_matmul` / :func:`w8a8_dense` (K7, ``csrc/w8a8_matmul.cu``):
+  the W8A8 GEMM of the quantized teacher. ``wq`` keeps JAX's ``[K, N]``
+  shape, but the kernel reads it K-contiguous: pass the ``[K, N]``
+  transposed view of an ``[N, K]`` pack (``QuantLinear.weight_q.t()``,
+  made once by ``quantization.quantize_teacher_``).
 """
 
 from __future__ import annotations
@@ -71,4 +76,80 @@ def w8_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     """``[..., K]`` activations through :func:`w8_matmul`."""
     lead = x.shape[:-1]
     y = w8_matmul(x.reshape(-1, x.shape[-1]), wq, sw, bias)
+    return y.reshape(*lead, wq.shape[1])
+
+
+def w8a8_matmul_plain(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+                      sw: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``float(xq · wq) · sx · sw + bias``: the integer sums exact in
+    float64 (|sum| ≤ 127²·K stays far below 2^53; float32 would not be
+    exact past 2^24), rounded to float32 as JAX casts its int32 sums, then
+    the epilogue in float32 in the kernel's order."""
+    acc = torch.matmul(xq.double(), wq.double()).float()
+    y = acc * sx.reshape(-1, 1).float() * sw.reshape(1, -1).float()
+    if bias is not None:
+        y = y + bias.reshape(1, -1).float()
+    return y.to(out_dtype)
+
+
+def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+                sw: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``xq [M, K]`` int8 with per-row scales ``sx`` (M values), ``wq
+    [K, N]`` int8 with per-column scales ``sw`` and ``bias`` (N float32
+    values each) → ``[M, N]`` ``out_dtype``. CPU tensors take
+    :func:`w8a8_matmul_plain`; CUDA tensors launch K7 or raise. K7 takes
+    ``xq`` contiguous, ``wq`` the transposed view of a contiguous ``[N, K]``
+    pack, K a multiple of 16, ``out_dtype`` float32 or bfloat16."""
+    if xq.device.type == "cpu":
+        return w8a8_matmul_plain(xq, sx, wq, sw, bias, out_dtype)
+    name = "w8a8_matmul"
+    _kernel.require(name, xq.dim() == 2 and wq.dim() == 2,
+                    "xq and wq must be 2-D")
+    m, k = xq.shape
+    n = wq.shape[1]
+    pack = wq.t()
+    tensors = [xq, sx, pack, sw] + ([bias] if bias is not None else [])
+    _kernel.require_cuda(name, *tensors)
+    _kernel.require(name, xq.dtype == wq.dtype == torch.int8,
+                    "xq and wq must be int8")
+    _kernel.require(name, wq.shape[0] == k,
+                    f"wq must be [{k}, N], got {tuple(wq.shape)}")
+    _kernel.require(name, k % 16 == 0 and xq.data_ptr() % 16 == 0
+                    and pack.data_ptr() % 16 == 0,
+                    f"takes K % 16 == 0 and 16-byte aligned operands, K={k}")
+    for t, what, count in ((sx, "sx", m), (sw, "sw", n), (bias, "bias", n)):
+        if t is not None:
+            _kernel.require(name, t.dtype == torch.float32
+                            and t.numel() == count,
+                            f"{what} must hold {count} float32 values")
+    code = _kernel.DTYPE_CODES.get(out_dtype)
+    _kernel.require(name, code is not None,
+                    f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    if m:
+        _kernel.launch("rtvc_w8a8_matmul", xq, xq.data_ptr(), sx.data_ptr(),
+                       pack.data_ptr(), sw.data_ptr(),
+                       0 if bias is None else bias.data_ptr(),
+                       out.data_ptr(), m, n, k, code)
+        w8a8_matmul.launches += 1
+    return out
+
+
+w8a8_matmul.launches = 0
+
+
+def w8a8_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``[..., K]`` float activations quantized per token (plain PyTorch,
+    as JAX leaves it to XLA), then :func:`w8a8_matmul`."""
+    from .quantization import quantize_activations
+
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    xq, sx = quantize_activations(x)
+    y = w8a8_matmul(xq.reshape(-1, k), sx.reshape(-1), wq, sw, bias,
+                    out_dtype)
     return y.reshape(*lead, wq.shape[1])

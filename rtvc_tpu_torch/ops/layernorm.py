@@ -1,10 +1,11 @@
-"""LayerNorm over the last axis: kernel K2 and its plain version.
+"""LayerNorm over the last axis: kernels K2 and K6 and their plain
+versions.
 
-Counterpart of ``rtvc_tpu/ops/layernorm.py`` (``_pallas_ln``,
-``fused_layer_norm``, ``FusedLayerNorm``). The CUDA kernel is
-``csrc/layer_norm.cu``; it serves every LayerNorm of the caption step (the
-student decoder's three norms per layer and TinyViT's attention and MLP
-input norms).
+Counterpart of ``rtvc_tpu/ops/layernorm.py``: ``_pallas_ln``,
+``fused_layer_norm`` and ``FusedLayerNorm`` (K2), ``_pallas_add_ln``,
+``fused_add_layer_norm`` and ``FusedAddLayerNorm`` (K6). Both kernels are
+in ``csrc/layer_norm.cu``. K2 serves every plain LayerNorm of the caption
+step and the teacher; K6 the residual add + norm at the CLIP blocks' ln_2.
 """
 
 from __future__ import annotations
@@ -66,3 +67,54 @@ class FusedLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def fused_add_layer_norm_plain(x: torch.Tensor, delta: torch.Tensor,
+                               weight: torch.Tensor, bias: torch.Tensor,
+                               eps: float = 1e-5):
+    """``(y, h)``: the float32 sum ``x + delta`` rounded to ``x.dtype``, and
+    the LayerNorm of the unrounded float32 sum in ``x.dtype``, as
+    ``_pallas_add_ln`` computes them."""
+    s = x.float() + delta.float()
+    return s.to(x.dtype), layer_norm_plain(s, weight, bias, eps).to(x.dtype)
+
+
+def fused_add_layer_norm(x: torch.Tensor, delta: torch.Tensor,
+                         weight: torch.Tensor, bias: torch.Tensor,
+                         eps: float = 1e-5):
+    """``(y, h) = (x + delta, LayerNorm(x + delta))`` over ``[..., W]``. CPU
+    tensors take the plain version; CUDA tensors launch K6 (all contiguous,
+    of one dtype, float32 or bfloat16) or raise."""
+    if x.device.type == "cpu":
+        return fused_add_layer_norm_plain(x, delta, weight, bias, eps)
+    name = "fused_add_layer_norm"
+    width = x.shape[-1]
+    _kernel.require_cuda(name, x, delta, weight, bias)
+    _kernel.require(name, delta.shape == x.shape,
+                    "x and delta must share a shape")
+    _kernel.require(name, weight.shape == bias.shape == (width,),
+                    f"weight/bias must be [{width}]")
+    _kernel.require(name, x.dtype == delta.dtype == weight.dtype == bias.dtype,
+                    "x, delta, weight and bias must share a dtype")
+    code = _kernel.dtype_code(name, x)
+    y, h = torch.empty_like(x), torch.empty_like(x)
+    rows = x.numel() // width
+    if rows:
+        _kernel.launch("rtvc_add_layer_norm", x, x.data_ptr(),
+                       delta.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                       y.data_ptr(), h.data_ptr(), rows, width, float(eps),
+                       code)
+        fused_add_layer_norm.launches += 1
+    return y, h
+
+
+fused_add_layer_norm.launches = 0
+
+
+class FusedAddLayerNorm(FusedLayerNorm):
+    """The same parameters as :class:`FusedLayerNorm`, called as
+    ``(y, h) = norm(x, delta)`` over K6."""
+
+    def forward(self, x: torch.Tensor, delta: torch.Tensor):
+        return fused_add_layer_norm(x, delta, self.weight, self.bias,
+                                    self.eps)

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from rtvc_tpu import config as jconfig
+from rtvc_tpu.models import clip_vit as jclip_vit
 from rtvc_tpu.models import convert as jconvert
+from rtvc_tpu.models import git_teacher as jgit_teacher
 from rtvc_tpu.models import tinyvit as jtinyvit
 from rtvc_tpu.models.student import StudentCandidateV1 as JaxStudent
 from rtvc_tpu.ops.quantization import quantize_vocab_head as jax_vocab_pack
@@ -227,18 +229,25 @@ def test_config_defaults_equal_jax():
     jcfg = jconfig.Config()
     assert (dataclasses.asdict(pconfig.StudentConfig())
             == dataclasses.asdict(jcfg.student))
-    jenc, penc = jtinyvit.tiny_vit_21m_config(), pconfig.tiny_vit_21m_config()
-    for f in dataclasses.fields(jenc):
-        j, p = getattr(jenc, f.name), getattr(penc, f.name)
-        if f.name == "dtype":
-            assert jnp.dtype(j).name == str(p).removeprefix("torch.")
-        else:
-            assert j == p, f.name
-    assert ({f.name for f in dataclasses.fields(jenc)}
-            == {f.name for f in dataclasses.fields(penc)})
+    assert (dataclasses.asdict(pconfig.TeacherConfig())
+            == dataclasses.asdict(jcfg.teacher))
+
+    def same_fields(jc, pc):
+        assert ({f.name for f in dataclasses.fields(jc)}
+                == {f.name for f in dataclasses.fields(pc)})
+        for f in dataclasses.fields(jc):
+            j, p = getattr(jc, f.name), getattr(pc, f.name)
+            if f.name == "dtype":
+                assert jnp.dtype(j).name == str(p).removeprefix("torch.")
+            elif f.name == "clip":
+                same_fields(j, p)
+            else:
+                assert j == p, f.name
+
+    same_fields(jtinyvit.tiny_vit_21m_config(), pconfig.tiny_vit_21m_config())
+    same_fields(jclip_vit.clip_vit_l14_config(), pconfig.clip_vit_l14_config())
+    same_fields(jgit_teacher.GITConfig(), pconfig.GITConfig())
     pcfg = pconfig.Config()
     assert pcfg.compute_dtype == jcfg.tpu.compute_dtype
+    assert pcfg.quantize_teacher == jcfg.tpu.quantize_teacher
     assert pcfg.num_frames == jcfg.data.num_frames
-    assert pcfg.teacher_visual_dim == jcfg.teacher.visual_feature_size
-    assert pcfg.teacher_num_frames == jcfg.teacher.num_image_with_embedding
-    assert pcfg.teacher_hidden == jcfg.teacher.hidden_size

@@ -4,8 +4,12 @@ Inputs come from numpy seeds. The JAX side runs its Pallas kernels in
 interpret mode under ``default_matmul_precision("highest")``; the port runs
 the plain versions its wrappers take for CPU tensors. Tolerances:
 
-- 1e-5 for the float32 kernels (window attention, LayerNorm, w8 GEMV):
-  the same arithmetic, summed in another order;
+- 1e-5 for the float32 kernels (window, flash and BLHD attention,
+  LayerNorm, add + LayerNorm, w8 GEMV): the same arithmetic, summed in
+  another order; one bf16 ulp for the bf16 add + LayerNorm, where both round
+  one float32 result;
+- 1e-6 relative for the W8A8 GEMM: its integer sums are exact on both
+  sides, and only the float32 epilogue may round differently;
 - int8 packs identical, scales to 1e-7: the same float32 rounding;
 - 1e-4 after CLIP normalize for preprocess: two bicubic implementations
   (≈5e-6 before the divide by std ≈ 0.27).
@@ -29,7 +33,9 @@ from rtvc_tpu_torch.ops import attention, int8_gemm, layernorm, preprocess
 from rtvc_tpu_torch.ops import quantization
 
 KERNEL_WRAPPERS = (attention.window_attention, layernorm.layer_norm,
-                   int8_gemm.w8_matmul)
+                   int8_gemm.w8_matmul, attention.flash_attention,
+                   attention.blhd_attention, layernorm.fused_add_layer_norm,
+                   int8_gemm.w8a8_matmul)
 
 
 def _t(a):
@@ -166,6 +172,211 @@ def test_clip_preprocess_matches_jax(shape, crop):
                                rtol=0)
 
 
+def _flash_inputs(b, h, lq, lkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, lq, d)).astype(np.float32)
+    k = rng.normal(size=(b, h, lkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, h, lkv, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case,causal,prefix,lq,masked", [
+    ("prefix_causal", True, 50, 70, False),
+    ("plain_causal", True, 0, 70, False),
+    ("bidirectional", False, 0, 70, False),
+    ("key_masked", True, 50, 70, True),
+    ("cross_ragged", False, 0, 37, True),
+])
+def test_flash_attention_matches_pallas(case, causal, prefix, lq, masked):
+    """K4's plain version against ``_pallas_attention`` in interpret mode;
+    Lq is no multiple of 64, and with a mask batch row 1 has no key left
+    (the uniform average of V, not NaN)."""
+    b, h, lkv, d = 2, 3, 70, 16
+    q, k, v = _flash_inputs(b, h, lq, lkv, d, seed=8)
+    kv_mask = None
+    if masked:
+        kv_mask = np.ones((b, lkv), bool)
+        kv_mask[0, ::3] = False
+        kv_mask[1] = False
+    with jax.default_matmul_precision("highest"):
+        want = jattention._pallas_attention(
+            *map(jnp.asarray, (q, k, v)),
+            None if kv_mask is None else jnp.asarray(kv_mask),
+            causal=causal, prefix_len=prefix, scale=d ** -0.5,
+            interpret=True)
+    got = attention.flash_attention(
+        *map(_t, (q, k, v)), causal=causal, prefix_len=prefix,
+        kv_mask=None if kv_mask is None else _t(kv_mask))
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_multi_head_attention_routes_long_context_to_k4():
+    """Bias-free attention over >= PALLAS_MIN_KV_LEN keys takes K4's route
+    (here its plain version); use_pallas=False forces the plain path; both
+    agree with JAX's xla_attention."""
+    b, h, lq, lkv, d = 1, 2, 9, attention.PALLAS_MIN_KV_LEN, 8
+    q, k, v = _flash_inputs(b, h, lq, lkv, d, seed=9)
+    with jax.default_matmul_precision("highest"):
+        want = jattention.xla_attention(*map(jnp.asarray, (q, k, v)),
+                                        causal=True, prefix_len=500)
+    calls = []
+    real = attention.flash_attention_plain
+    attention.flash_attention_plain = lambda *a, **kw: (
+        calls.append(1), real(*a, **kw))[1]
+    try:
+        routed = attention.multi_head_attention(
+            *map(_t, (q, k, v)), causal=True, prefix_len=500)
+        plain = attention.multi_head_attention(
+            *map(_t, (q, k, v)), causal=True, prefix_len=500,
+            use_pallas=False)
+    finally:
+        attention.flash_attention_plain = real
+    assert len(calls) == 1
+    for got in (routed, plain):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_flash_attention_refuses_dropout_and_native_softmax():
+    q = torch.zeros(1, 1, 4, 8)
+    for kw in (dict(dropout_rate=0.1), dict(softmax_in_input_dtype=True)):
+        with pytest.raises(NotImplementedError):
+            attention.flash_attention(q, q, q, **kw)
+
+
+@pytest.mark.parametrize("l", [17, 70])
+def test_blhd_attention_matches_pallas(l):
+    """K5's plain version on strided [B, L, H, D] views of a packed QKV
+    product against ``blhd_attention`` in interpret mode."""
+    b, h, d = 2, 4, 16
+    qkv = np.random.default_rng(10).normal(
+        size=(b, l, 3 * h * d)).astype(np.float32)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, l, h, d)
+               for i in range(3))
+    with jax.default_matmul_precision("highest"):
+        want = jattention.blhd_attention(*map(jnp.asarray, (q, k, v)),
+                                         interpret=True)
+    views = _t(qkv).view(b, l, 3, h, d).unbind(2)
+    got = attention.blhd_attention(*views)
+    assert got.shape == (b, l, h, d) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_add_layer_norm_matches_pallas(dtype):
+    """Both outputs of K6's plain version against ``_pallas_add_ln``: the
+    rounded sum, and the norm of the float32 sum."""
+    rng = np.random.default_rng(11)
+    rows, width = 13, 96
+    x = (rng.normal(size=(rows, width)) * 3 + 1).astype(np.float32)
+    delta = rng.normal(size=(rows, width)).astype(np.float32)
+    scale = rng.normal(size=(width,)).astype(np.float32)
+    bias = rng.normal(size=(width,)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    want_y, want_h = jlayernorm._pallas_add_ln(
+        *(jnp.asarray(a).astype(jdt) for a in (x, delta, scale, bias)),
+        1e-5, interpret=True)
+    tdt = getattr(torch, dtype)
+    norm = layernorm.FusedAddLayerNorm(width)
+    with torch.no_grad():
+        norm.weight.copy_(_t(scale))
+        norm.bias.copy_(_t(bias))
+        norm.to(tdt)
+        got_y, got_h = norm(_t(x).to(tdt), _t(delta).to(tdt))
+    assert got_y.dtype == got_h.dtype == tdt
+    for got, want in ((got_y, want_y), (got_h, want_h)):
+        got = got.float().numpy()
+        want = np.asarray(want.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        else:  # at most one bf16 ulp (2^-7 of the value's binade)
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want),
+                                                      1e-30))) - 7)
+            assert (np.abs(got - want) <= ulp).all()
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_w8a8_matmul_matches_pallas(with_bias):
+    rng = np.random.default_rng(12)
+    m, k, n = 37, 64, 300
+    xq = rng.integers(-127, 128, size=(m, k)).astype(np.int8)
+    sx = (rng.random((m, 1)) * 0.02 + 1e-3).astype(np.float32)
+    wq = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+    sw = (rng.random(n) * 0.02 + 1e-3).astype(np.float32)
+    b = rng.normal(size=(n,)).astype(np.float32) if with_bias else None
+    want = jint8_gemm.w8a8_matmul(
+        jnp.asarray(xq), jnp.asarray(sx), jnp.asarray(wq), jnp.asarray(sw),
+        bias=None if b is None else jnp.asarray(b), out_dtype=jnp.float32,
+        tm=128, tn=128, interpret=True)
+    got = int8_gemm.w8a8_matmul(_t(xq), _t(sx), _t(wq), _t(sw),
+                                None if b is None else _t(b))
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6 * float(np.abs(want).max()))
+
+
+def test_w8a8_plain_sums_exactly_past_float32():
+    """|sum| = 127²·4096 > 2^24: the plain version still gets the exact
+    integer before its one rounding to float32."""
+    k = 4096
+    xq = torch.full((1, k), 127, dtype=torch.int8)
+    wq = torch.full((k, 2), 127, dtype=torch.int8)
+    wq[0, 1] = 126  # sum 127²·4096 - 127: odd, not a float32 value
+    got = int8_gemm.w8a8_matmul_plain(xq, torch.ones(1), wq, torch.ones(2))
+    exact = np.array([127 * 127 * k, 127 * 127 * k - 127], np.int64)
+    assert got[0].numpy().tolist() == exact.astype(np.float32).tolist()
+
+
+def test_quantize_activations_and_teacher_packs_equal_jax():
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(3, 5, 24)).astype(np.float32)
+    x[0, 0] = 0.0  # an all-zero row takes the 1e-8 scale floor
+    jq, js = jquantization.quantize_activations(jnp.asarray(x))
+    pq, ps = quantization.quantize_activations(_t(x))
+    np.testing.assert_array_equal(pq.numpy(), np.asarray(jq))
+    np.testing.assert_allclose(ps.numpy(), np.asarray(js), rtol=1e-7, atol=0)
+
+    model = torch.nn.Sequential(torch.nn.Linear(24, 40),
+                                torch.nn.LayerNorm(40),
+                                torch.nn.Linear(40, 8, bias=False))
+    params = {str(i): {"kernel": model[i].weight.detach().numpy().T}
+              for i in (0, 2)}
+    params["0"]["bias"] = model[0].bias.detach().numpy()
+    jpacked = jquantization.quantize_teacher_params(
+        {k: {n: jnp.asarray(a) for n, a in v.items()}
+         for k, v in params.items()})
+    quantization.quantize_teacher_(model)
+    assert isinstance(model[1], torch.nn.LayerNorm)
+    for i in (0, 2):
+        q = model[i]
+        assert isinstance(q, quantization.QuantLinear)
+        np.testing.assert_array_equal(q.weight_q.t().numpy(),
+                                      np.asarray(jpacked[str(i)]["kernel_q"]))
+        np.testing.assert_allclose(
+            q.weight_scale.numpy(),
+            np.asarray(jpacked[str(i)]["kernel_scale"]), rtol=1e-7, atol=0)
+    np.testing.assert_array_equal(model[0].bias.numpy(), params["0"]["bias"])
+    assert model[2].bias is None
+
+
+def test_int8_matmul_matches_jax():
+    """QuantDense's W8A8 matmul (JAX's XLA int8 route) and the port's
+    (K7's plain version) on the same pack."""
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(2, 6, 32)).astype(np.float32)
+    w = rng.normal(size=(32, 20)).astype(np.float32)
+    b = rng.normal(size=(20,)).astype(np.float32)
+    wq, sw = jquantization.quantize_weight(jnp.asarray(w))
+    want = jquantization.int8_matmul(jnp.asarray(x), wq, sw, jnp.asarray(b))
+    got = quantization.int8_matmul(_t(x), _t(np.asarray(wq)),
+                                   _t(np.asarray(sw)), _t(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
@@ -174,7 +385,12 @@ def test_cpu_tensors_never_launch_a_kernel():
     layernorm.layer_norm(q, torch.ones(32), torch.zeros(32))
     int8_gemm.w8_matmul(torch.ones(2, 8), torch.ones(8, 4, dtype=torch.int8),
                         torch.ones(4))
-    assert [fn.launches for fn in KERNEL_WRAPPERS] == [0, 0, 0]
+    attention.flash_attention(q, k, v, causal=True)
+    attention.blhd_attention(q, k, v)
+    layernorm.fused_add_layer_norm(q, k, torch.ones(32), torch.zeros(32))
+    int8_gemm.w8a8_matmul(torch.ones(2, 16, dtype=torch.int8), torch.ones(2),
+                          torch.ones(16, 4, dtype=torch.int8), torch.ones(4))
+    assert [fn.launches for fn in KERNEL_WRAPPERS] == [0] * 7
 
 
 # ---------------------------------------------------------------------------
@@ -220,3 +436,73 @@ def test_kernels_match_plain_on_cuda(cuda, dtype, tol):
         want = int8_gemm.w8_matmul_plain(xm, wq, sw, bb)
         assert (got.float() - want.float()).abs().max() <= tol * 4
     torch.cuda.synchronize()
+
+
+CUDA_TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+def _rand(cuda, g):
+    return lambda *shape: torch.randn(*shape, generator=g).to(cuda)
+
+
+def _assert_close_on_cuda(got, want, tol):
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max()
+    assert err <= tol * max(1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CUDA_TOLS)
+def test_flash_attention_matches_plain_on_cuda(cuda, dtype, tol):
+    """K4 on strided head views of a packed QKV product: prefix-causal,
+    and key-masked with a batch row that has no key left."""
+    rand = _rand(cuda, torch.Generator().manual_seed(1))
+    qkv = rand(2, 300, 3 * 4 * 64).to(dtype)
+    heads = [t.transpose(1, 2) for t in qkv.view(2, 300, 3, 4, 64).unbind(2)]
+    mask = torch.ones(2, 300, dtype=torch.bool, device=cuda)
+    mask[1] = False
+    for kw in (dict(causal=True, prefix_len=260), dict(kv_mask=mask)):
+        _assert_close_on_cuda(attention.flash_attention(*heads, **kw),
+                              attention.flash_attention_plain(*heads, **kw),
+                              tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CUDA_TOLS)
+def test_blhd_attention_matches_plain_on_cuda(cuda, dtype, tol):
+    """K5 on the [B, L, H, D] views of a packed QKV product."""
+    rand = _rand(cuda, torch.Generator().manual_seed(2))
+    views = rand(3, 257, 3 * 4 * 64).to(dtype).view(3, 257, 3, 4,
+                                                    64).unbind(2)
+    _assert_close_on_cuda(attention.blhd_attention(*views),
+                          attention.blhd_attention_plain(*views), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CUDA_TOLS)
+def test_fused_add_layer_norm_matches_plain_on_cuda(cuda, dtype, tol):
+    rand = _rand(cuda, torch.Generator().manual_seed(3))
+    x, d = rand(500, 1024).to(dtype), rand(500, 1024).to(dtype)
+    w, b = rand(1024).to(dtype), rand(1024).to(dtype)
+    for got, want in zip(layernorm.fused_add_layer_norm(x, d, w, b),
+                         layernorm.fused_add_layer_norm_plain(x, d, w, b)):
+        _assert_close_on_cuda(got, want, tol * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CUDA_TOLS)
+def test_w8a8_matmul_matches_plain_on_cuda(cuda, dtype, tol):
+    """K7 with a ragged N and M = 8 and 300, output in ``dtype``."""
+    g = torch.Generator().manual_seed(4)
+    rand = _rand(cuda, g)
+    pack = torch.randint(-127, 128, (1000, 768), generator=g,
+                         dtype=torch.int8).to(cuda)
+    sw, bb = rand(1000).abs() * 1e-3, rand(1000)
+    for m in (8, 300):
+        xq = torch.randint(-127, 128, (m, 768), generator=g,
+                           dtype=torch.int8).to(cuda)
+        sx = rand(m).abs() * 1e-2
+        _assert_close_on_cuda(
+            int8_gemm.w8a8_matmul(xq, sx, pack.t(), sw, bb, dtype),
+            int8_gemm.w8a8_matmul_plain(xq, sx, pack.t(), sw, bb, dtype),
+            tol)
