@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's caption step and frozen teacher once on an
-NVIDIA GPU.
+"""Drive the PyTorch port's caption step, frozen teacher and distillation
+train step once on an NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -13,8 +13,12 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
 3. kernels: K1 (window attention), K2 (LayerNorm) and K3 (int8 GEMV) at
    the caption step's shapes, K2, K4 (flash attention), K5 (BLHD
    attention), K6 (add + LayerNorm) and K7 (W8A8 GEMM) at the teacher's,
-   in bfloat16 and float32, each held against its plain PyTorch version
-   on the card and timed against it with CUDA events;
+   K4 with dropout, K8 (flash backward, with and without dropout) and K9
+   (depthwise 3x3 weight gradient) at the train step's, in bfloat16 and
+   float32, each held against its plain PyTorch version on the card and
+   timed against it with CUDA events. Then K8's one caller, the gradient
+   of ``flash_attention`` through autograd, runs once at the joint shape
+   with dropout, launch counts reset before and read after;
 4. slice: the full-width student (random weights from a seeded generator,
    bfloat16) serves 8 distinct 480×640 6-frame windows at batch 1 and as
    one batch of 8, through the default and the ``vocab_int8`` caption
@@ -32,7 +36,17 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    forward holds every K7 launch in it against the plain version on the
    same input. Then, in float32 with TF32 off, a depth-cut teacher (2 CLIP
    blocks, 2 joint layers, full widths) on the card is held against the
-   same model on the CPU.
+   same model on the CPU;
+6. train: the full-width student (bfloat16 compute over float32 master
+   weights) and the full-width teacher run 5 steps of the default
+   ``make_train_step`` (kl + ce, dropout 0.3, DropPath, Adam at lr 1e-4)
+   on 8 preprocessed windows with 40-token captions, printing each step's
+   time and parts, losses, gradient norm and peak memory. Every parameter
+   the loss reaches must get a finite gradient, nonzero somewhere, and
+   only the distillation heads that kl + ce leave unused none; launch
+   counts must equal the layer counts. Then one float32 step (TF32 off,
+   one window, no dropout, the teacher cut to 2 CLIP blocks and 2 joint
+   layers) on the card is held against the same step on the CPU.
 
 It prints the kernels' record as one JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -45,6 +59,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -62,6 +77,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # card vs CPU, float32, TF32 off: the full 14-stage encoder and 2-layer
 # decoder (or the depth-cut teacher) with every sum in another order
 SLICE_TOL = 1e-3
+# gradient leaves below this share of the largest are held to it (see
+# train_f32_check)
+GRAD_FLOOR = 1e-4
 CAPTION_LEN = 40               # teacher-forced caption tokens
 TAPS = (0, 6, 12, 18)          # CLIP blocks tapped for distillation
 BEAM_BATCH, BEAMS, BEAM_STEPS = 2, 4, 15
@@ -81,7 +99,13 @@ KERNELS = {
                              "rtvc_tpu/ops/layernorm.py:159"),
     "w8a8_matmul": ("rtvc_tpu_torch/csrc/w8a8_matmul.cu",
                     "rtvc_tpu/ops/int8_gemm.py:100"),
+    "flash_attention_bwd": ("rtvc_tpu_torch/csrc/flash_attention.cu",
+                            "rtvc_tpu/ops/attention.py:452"),
+    "dw3x3_wgrad": ("rtvc_tpu_torch/csrc/depthwise_wgrad.cu",
+                    "rtvc_tpu/ops/depthwise.py:90"),
 }
+TRAIN_STEPS = 5
+DROPOUT_SEED = 12345
 
 
 def log(*args) -> None:
@@ -135,9 +159,13 @@ def kernel_cases(dev, g):
     ln_2 add + norm, and the W8A8 GEMMs of a CLIP MLP (both Linears) at
     M = 12336, of the joint fc2 at M = 12656 (K up to 4096, where the
     int32 sums pass 2^24) and of the vocab projection at the
-    teacher-forced M = 320 and a beam's M = 8."""
+    teacher-forced M = 320 and a beam's M = 8. The train step's: K4 with
+    dropout 0.1 at the joint shape, K8 there with and without dropout and
+    on the ragged, key-masked case, K9 on the four stride-1 depthwise
+    shapes of the batch-8 TinyViT (MBConv at stage 0, local_conv at
+    stages 1-3)."""
     import torch
-    from rtvc_tpu_torch.ops import attention, int8_gemm, layernorm
+    from rtvc_tpu_torch.ops import attention, depthwise, int8_gemm, layernorm
 
     def rand(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
@@ -195,19 +223,47 @@ def kernel_cases(dev, g):
         ragged = (rand(2, h, 1000, d, dtype=dtype),
                   rand(2, h, 1037, d, dtype=dtype),
                   rand(2, h, 1037, d, dtype=dtype))
+        drop = dict(dropout_rate=0.1, seed=DROPOUT_SEED)
+        joint = dict(causal=True, prefix_len=prefix)
         for label, args, kw in (
-                (f"joint [{b},{h},{lq},{d}] prefix {prefix}", heads,
-                 dict(causal=True, prefix_len=prefix)),
+                (f"joint [{b},{h},{lq},{d}] prefix {prefix}", heads, joint),
                 (f"ragged [2,{h},1000x1037,{d}] prefix 900", ragged,
                  dict(causal=True, prefix_len=900)),
                 (f"key-masked [{b},{h},{lq},{d}]", heads,
-                 dict(causal=True, prefix_len=prefix, kv_mask=mask))):
+                 dict(joint, kv_mask=mask)),
+                (f"dropout 0.1 joint [{b},{h},{lq},{d}]", heads,
+                 dict(joint, **drop))):
             cases.append((
                 "flash_attention", f"{dn} {label}",
                 lambda a=args, kw=kw: attention.flash_attention(*a, **kw),
                 lambda a=args, kw=kw: attention.flash_attention_plain(*a,
                                                                       **kw),
                 10))
+        rmask = torch.rand(2, 1037, generator=g).to(dev) > 0.1
+        rmask[-1] = False
+        for label, args, kw in (
+                (f"joint [{b},{h},{lq},{d}] prefix {prefix}",
+                 heads + (rand(b, h, lq, d, dtype=dtype),), joint),
+                (f"dropout 0.1 joint [{b},{h},{lq},{d}]",
+                 heads + (rand(b, h, lq, d, dtype=dtype),),
+                 dict(joint, **drop)),
+                (f"key-masked ragged [2,{h},1000x1037,{d}] prefix 900",
+                 ragged + (rand(2, h, 1000, d, dtype=dtype),),
+                 dict(causal=True, prefix_len=900, kv_mask=rmask))):
+            cases.append((
+                "flash_attention_bwd", f"{dn} {label}",
+                lambda a=args, kw=kw: attention.flash_attention_bwd(*a, **kw),
+                lambda a=args, kw=kw: attention.flash_attention_bwd_plain(
+                    *a, **kw), 3))
+        for stage, (c, hw) in enumerate(((384, 56), (192, 28), (384, 14),
+                                         (576, 7))):
+            x, dy = (rand(WINDOWS * FRAMES, c, hw, hw, dtype=dtype)
+                     for _ in range(2))
+            cases.append((
+                "dw3x3_wgrad",
+                f"{dn} stage{stage} [{WINDOWS * FRAMES},{c},{hw},{hw}]",
+                lambda a=(x, dy): depthwise.dw3x3_wgrad(*a),
+                lambda a=(x, dy): depthwise.dw3x3_wgrad_plain(*a), 20))
         clip_qkv = rand(WINDOWS * FRAMES, 257, 3 * 1024, dtype=dtype)
         views = clip_qkv.view(WINDOWS * FRAMES, 257, 3, 16, 64).unbind(2)
         cases.append((
@@ -278,6 +334,41 @@ def kernel_phase(dev):
     return records
 
 
+def flash_grad_path(dev) -> dict:
+    """K8's caller: ``flash_attention(...).backward()`` at the joint shape,
+    bf16, dropout 0.1 drawn from a CPU generator. Launch counts are reset
+    before and read after; K4 and K8 must launch once each, and the
+    gradients must equal ``flash_attention_bwd_plain`` with the same seed
+    (the seed is the generator's next draw)."""
+    import torch
+    from rtvc_tpu_torch.ops import attention
+    from rtvc_tpu_torch.ops.dropout import draw_seed
+    g = torch.Generator().manual_seed(SEED + 5)
+    b, h, lq, d = WINDOWS, 12, FRAMES * 257 + CAPTION_LEN, 64
+    q, k, v, go = (torch.randn(b, h, lq, d, generator=g).to(
+        dev, torch.bfloat16) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kw = dict(causal=True, prefix_len=FRAMES * 257, dropout_rate=0.1)
+    seed = draw_seed(torch.Generator().manual_seed(SEED + 6))
+    torch.cuda.synchronize()
+    reset_counts()
+    attention.flash_attention(
+        *leaves, generator=torch.Generator().manual_seed(SEED + 6),
+        **kw).backward(go)
+    torch.cuda.synchronize()
+    launched = counts()
+    want = attention.flash_attention_bwd_plain(q, k, v, go, seed=seed, **kw)
+    err = max(rel_err(t.grad, w)[1] for t, w in zip(leaves, want))
+    log(f"  flash_attention autograd, dropout 0.1: launches {launched}, "
+        f"grads vs plain {err:.3e} (tol {TOL['bfloat16']:g} rel)")
+    check_launches("flash_attention autograd", launched,
+                   {"flash_attention": 1, "flash_attention_bwd": 1})
+    if not err <= TOL["bfloat16"]:
+        raise AssertionError("flash_attention gradients disagree with "
+                             "flash_attention_bwd_plain")
+    return launched
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the caption step
 # ---------------------------------------------------------------------------
@@ -318,14 +409,16 @@ def decode_steps(rows, sep_id: int) -> int:
 
 def wrappers() -> dict:
     """Each kernel's wrapper, by the kernel's name in KERNELS."""
-    from rtvc_tpu_torch.ops import attention, int8_gemm, layernorm
+    from rtvc_tpu_torch.ops import attention, depthwise, int8_gemm, layernorm
     return {"window_attention": attention.window_attention,
             "layer_norm": layernorm.layer_norm,
             "w8_matmul": int8_gemm.w8_matmul,
             "flash_attention": attention.flash_attention,
             "blhd_attention": attention.blhd_attention,
             "fused_add_layer_norm": layernorm.fused_add_layer_norm,
-            "w8a8_matmul": int8_gemm.w8a8_matmul}
+            "w8a8_matmul": int8_gemm.w8a8_matmul,
+            "flash_attention_bwd": attention.flash_attention_bwd,
+            "dw3x3_wgrad": depthwise.dw3x3_wgrad}
 
 
 def counts() -> dict:
@@ -688,6 +781,202 @@ def teacher_phase(dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the distillation train step
+# ---------------------------------------------------------------------------
+
+# the student's distillation heads: kl + ce leave them without a gradient
+HEADS = ("projectors.", "upsample.", "project.", "project_decoder.")
+
+
+def train_batch(g, dev, windows: int = 0) -> dict:
+    """``windows`` (all ``WINDOWS`` by default) preprocessed 6-frame windows
+    and 40-token captions: CLS first, a seeded valid length from 5 tokens
+    up, pad (0) after it."""
+    import torch
+    from rtvc_tpu_torch.config import cfg
+    from rtvc_tpu_torch.ops.preprocess import clip_preprocess
+    windows = windows or WINDOWS
+    raw = make_windows(g)[:windows].to(dev)
+    frames = clip_preprocess(raw.reshape((-1,) + raw.shape[2:]))
+    frames = frames.reshape((windows, FRAMES) + frames.shape[1:])
+    caps = torch.randint(1000, cfg.student.vocab_size,
+                         (windows, CAPTION_LEN), generator=g)
+    lens = torch.randint(5, CAPTION_LEN + 1, (windows,), generator=g)
+    caps[torch.arange(CAPTION_LEN)[None, :] >= lens[:, None]] = 0
+    caps[:, 0] = cfg.student.cls_token_id
+    return {"frames": frames, "caption": caps.to(dev)}
+
+
+def gradient_check(model, mu) -> int:
+    """Adam's first moment after one step is 0.1·g: every parameter's must
+    be finite, nonzero somewhere, and zero everywhere only for the heads
+    that kl + ce leave unused. Returns how many parameters the loss
+    reached."""
+    import torch
+    unreached = []
+    for (name, _), m in zip(model.named_parameters(), mu):
+        if not bool(torch.isfinite(m).all()):
+            raise AssertionError(f"non-finite gradient in {name}")
+        if not bool((m != 0).any()):
+            unreached.append(name)
+    wrong = [n for n in unreached if not n.startswith(HEADS)]
+    if wrong:
+        raise AssertionError(f"{len(wrong)} parameters got no gradient, "
+                             f"first {wrong[:5]}")
+    return len(mu) - len(unreached)
+
+
+def train_launches_per_step(student, teacher) -> dict:
+    """Kernel launches one train step makes, from the layer counts: K1 per
+    TinyViT attention block, K9 per stride-1 depthwise conv (MBConv conv2
+    and local_conv), K2 per student and teacher LayerNorm (the backward of
+    K1 and K2 is plain PyTorch), K4-K6 per teacher layer as in the teacher
+    phase."""
+    depths = student.image_encoder["model"].config.depths
+    tc = teacher.config
+    blocks = sum(depths[1:])
+    return {"window_attention": blocks, "dw3x3_wgrad": sum(depths),
+            "layer_norm": 2 * blocks + 3 * len(student.decoder["layers"])
+            + tc.clip.layers + 4 + 2 * tc.num_layers,
+            "flash_attention": tc.num_layers,
+            "blhd_attention": tc.clip.layers,
+            "fused_add_layer_norm": tc.clip.layers, "w8_matmul": 0,
+            "w8a8_matmul": 0, "flash_attention_bwd": 0}
+
+
+def train_f32_check(dev) -> dict:
+    """One float32 step (TF32 off) of the full-width student on one window
+    with dropout and DropPath at 0, the teacher cut to 2 CLIP blocks and 2
+    joint layers, on the card (kernels) against the same step on the CPU
+    (plain versions): the losses, each parameter's gradient (read from
+    Adam's first moment) and the new BatchNorm statistics."""
+    import torch
+    from rtvc_tpu_torch.config import GITConfig, cfg, clip_vit_l14_config
+    from rtvc_tpu_torch.models import git_teacher, student as student_lib
+    from rtvc_tpu_torch.models.layers import DropPath
+    from rtvc_tpu_torch.train import Adam, create_train_state, make_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(SEED + 8)
+    student = student_lib.random_init_(
+        student_lib.student_from_config(cfg), g)
+    for mod in student.modules():
+        if isinstance(mod, student_lib.TransformerDecoderLayer):
+            mod.dropout = 0.0
+        elif isinstance(mod, DropPath):
+            mod.rate = 0.0
+    cut = GITConfig(clip=clip_vit_l14_config(layers=2), num_layers=2)
+    teacher = git_teacher.random_init_(git_teacher.GITTeacher(cut), g)
+    batch = train_batch(g, "cpu", windows=1)
+    runs = {}
+    for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = copy.deepcopy(student).to(d)
+        opt = Adam(cfg.train.lr)
+        state = create_train_state(model, opt, torch.float32)
+        step = make_train_step(model, copy.deepcopy(teacher).to(d), opt)
+        metrics = step(state, {k: v.to(d) for k, v in batch.items()},
+                       torch.Generator().manual_seed(0))
+        runs[side] = (metrics, state.opt_state.mu,
+                      {n: b for n, b in model.named_buffers()
+                       if n.endswith(("running_mean", "running_var"))})
+    (m_cpu, mu_cpu, bn_cpu), (m_card, mu_card, bn_card) = (runs["cpu"],
+                                                           runs["card"])
+    out = {}
+    for k in ("kl", "ce", "total"):
+        a, b = float(m_card[k]), float(m_cpu[k])
+        rel = abs(a - b) / max(1.0, abs(b))
+        log(f"  f32 card vs cpu step {k:5s} {a:.6f} vs {b:.6f} (rel "
+            f"{rel:.3e}, tol 1e-5)")
+        if not rel <= 1e-5:
+            raise AssertionError(f"f32 train step {k}: card and CPU disagree")
+        out[f"f32_step_{k}_rel_err"] = rel
+
+    # Each gradient leaf is held to its own largest value, or to
+    # GRAD_FLOOR of the largest over all leaves where its own is smaller:
+    # a gradient that is zero in exact arithmetic is rounding noise on both
+    # sides (the last MLP bias of stages 1 and 2 only feeds a train-mode
+    # BatchNorm, which removes any per-channel constant: ~1e-8 of the
+    # largest gradient). The BatchNorm statistics are activation-scale
+    # values and take the rule of the other checks, max(1, max|cpu|).
+    top = max(float(b.abs().max()) for b in mu_cpu)
+    grads = max(float((a.cpu() - b).abs().max())
+                / max(float(b.abs().max()), GRAD_FLOOR * top)
+                for a, b in zip(mu_card, mu_cpu))
+    stats = max(rel_err(bn_card[n].cpu(), bn_cpu[n])[1] for n in bn_cpu)
+    log(f"  f32 card vs cpu step: worst gradient leaf {grads:.3e} (of max("
+        f"leaf max, {GRAD_FLOOR:g} x largest)), worst BatchNorm statistic "
+        f"{stats:.3e} (of max(1, max)); tol {SLICE_TOL:g}")
+    if not (grads <= SLICE_TOL and stats <= SLICE_TOL):
+        raise AssertionError("f32 train step: card and CPU disagree")
+    out.update(f32_step_worst_grad_rel_err=grads,
+               f32_step_worst_bn_stat_rel_err=stats)
+    return out
+
+
+def train_phase(dev) -> dict:
+    import torch
+    from rtvc_tpu_torch.config import cfg
+    from rtvc_tpu_torch.models import git_teacher, student as student_lib
+    from rtvc_tpu_torch.train import Adam, create_train_state, make_train_step
+
+    g = torch.Generator().manual_seed(SEED + 3)
+    student = student_lib.random_init_(
+        student_lib.student_from_config(cfg), g).to(dev)
+    teacher = git_teacher.random_init_(
+        git_teacher.teacher_from_config(cfg), g).to(dev)
+    batch = train_batch(g, dev)
+    optimizer = Adam(cfg.train.lr)
+    state = create_train_state(student, optimizer, cfg.dtype)
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    step = make_train_step(student, teacher, optimizer, mark=mark)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    per_step = train_launches_per_step(student, teacher)
+    torch.cuda.synchronize()
+    reset_counts()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        marks.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        t = {name: ev for name, ev in marks}
+        rec = dict(step=i + 1,
+                   ms=t["teacher"].elapsed_time(t["end"]),
+                   teacher_ms=t["teacher"].elapsed_time(t["student"]),
+                   student_ms=t["student"].elapsed_time(t["optimizer"]),
+                   optimizer_ms=t["optimizer"].elapsed_time(t["end"]),
+                   max_memory_gb=torch.cuda.max_memory_allocated(dev) / 2**30,
+                   **{k: float(v) for k, v in metrics.items()})
+        if not all(map(math.isfinite, rec.values())):
+            raise AssertionError(f"train step {i + 1}: non-finite {rec}")
+        log(f"  step {i + 1}: {json.dumps(rec)}")
+        if i == 0:
+            reached = gradient_check(student, state.opt_state.mu)
+            log(f"  step 1: {reached} of {len(state.params)} parameters "
+                f"got a finite, nonzero gradient; the rest are the unused "
+                f"heads {HEADS}")
+        steps.append(rec)
+    launched = counts()
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    log(f"  launches over {TRAIN_STEPS} steps {launched}")
+    check_launches("train steps", launched, want)
+    if not state.step == TRAIN_STEPS:
+        raise AssertionError(f"state.step {state.step}")
+    del student, teacher, state, step
+    torch.cuda.empty_cache()
+    result = dict(steps=steps, parameters_reached=reached,
+                  launches=launched, launches_per_step=per_step)
+    result.update(train_f32_check(dev))
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measurement to this "
@@ -711,33 +1000,44 @@ def main(argv=None) -> int:
 
     log("[kernels] kernel vs plain on the card")
     records = kernel_phase(dev)
+    grad_path = flash_grad_path(dev)
     log("[slice] full-width student, caption steps")
     sl = slice_phase(dev)
     log("[teacher] full-width GIT-Large teacher, bf16")
     te = teacher_phase(dev)
+    log("[train] distillation train step, full-width student and teacher")
+    tr = train_phase(dev)
 
     # the row per kernel: its largest error over all cases; its times at the
-    # main path's heaviest bf16 case
+    # main path's heaviest bf16 case; its launches on the main paths (K8
+    # has no caller there: its launches are those of flash_attention's
+    # gradient in the kernel phase)
     primary = {"window_attention": "bfloat16 stage1 b8",
                "layer_norm": "bfloat16 [200,576]",
                "w8_matmul": "bfloat16 M=8",
                "flash_attention": "bfloat16 joint",
                "blhd_attention": "bfloat16 clip",
                "fused_add_layer_norm": "bfloat16 [",
-               "w8a8_matmul": "bfloat16 clip fc"}
+               "w8a8_matmul": "bfloat16 clip fc",
+               "flash_attention_bwd": "bfloat16 joint",
+               "dw3x3_wgrad": "bfloat16 stage0"}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in records if r["name"] == name]
         head = next(r for r in mine if r["case"].startswith(primary[name]))
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=sl["launches"][name] + te["launches"][name],
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=head["ms"], plain_ms=head["plain_ms"]))
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   launches=sl["launches"][name] + te["launches"][name]
+                   + tr["launches"][name],
+                   max_abs_err=max(r["max_abs_err"] for r in mine),
+                   ms=head["ms"], plain_ms=head["plain_ms"])
+        if name == "flash_attention_bwd":
+            row.update(launches=grad_path[name],
+                       launches_from="flash_attention autograd, kernel phase")
+        kernels.append(row)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(device=smi, kernels=kernels, cases=records,
-                           slice=sl, teacher=te), f, indent=1)
+                           slice=sl, teacher=te, train=tr), f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

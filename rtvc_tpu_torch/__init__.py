@@ -1,6 +1,6 @@
-"""rtvc_tpu_torch — the caption step and the frozen GIT-Large teacher of
-``rtvc_tpu`` in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
-(``sm_90a``).
+"""rtvc_tpu_torch — the caption step, the frozen GIT-Large teacher and the
+distillation train step of ``rtvc_tpu`` in PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper (``sm_90a``).
 
 The JAX package ``rtvc_tpu`` is the reference; every module here has a
 counterpart of the same name there:
@@ -9,16 +9,22 @@ counterpart of the same name there:
                           defaults (copied: importing ``rtvc_tpu`` imports jax)
 - ``ops.preprocess``    ➜ ``rtvc_tpu/ops/preprocess.py``
 - ``ops.layernorm``     ➜ ``rtvc_tpu/ops/layernorm.py`` (kernels K2, K6)
-- ``ops.attention``     ➜ ``rtvc_tpu/ops/attention.py`` (kernels K1, K4, K5)
+- ``ops.attention``     ➜ ``rtvc_tpu/ops/attention.py`` (kernels K1, K4, K5,
+                          K8)
+- ``ops.depthwise``     ➜ ``rtvc_tpu/ops/depthwise.py`` (kernel K9)
 - ``ops.quantization``  ➜ ``rtvc_tpu/ops/quantization.py``
 - ``ops.int8_gemm``     ➜ ``rtvc_tpu/ops/int8_gemm.py`` (kernels K3, K7)
 - ``models.*``          ➜ ``rtvc_tpu/models/*`` (TinyViT, student, CLIP
                           ViT, GIT teacher, weight bridge)
 - ``decode``            ➜ ``rtvc_tpu/decode.py`` (greedy, teacher beam)
 - ``serving``           ➜ ``rtvc_tpu/serving.py`` (the caption step)
+- ``distill``           ➜ ``rtvc_tpu/distill.py`` (the six losses)
+- ``train``             ➜ ``rtvc_tpu/train.py`` (the train step, Adam, the
+                          plateau scheduler)
 
 ``profile_teacher`` has no counterpart: it prints the teacher's device time
-by op on a card. Kernels live in ``csrc/`` and are compiled by ``_build``
+by op on a card; nor has ``ops.dropout``, the train step's random draws
+from an explicit CPU ``torch.Generator``. Kernels live in ``csrc/`` and are compiled by ``_build``
 with ``nvcc`` at their first launch. A wrapper given CPU tensors runs its
 plain PyTorch version; given CUDA tensors it launches the kernel or raises.
 This package imports neither jax, flax nor cv2.

@@ -29,6 +29,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
+# the dropout arguments of K4 and K8: seed, threshold, 1 - rate, on
+_DROPOUT = [_U, _U, _F, _I]
 # C entry point -> argument types (every pointer and the stream as void*)
 SIGNATURES = {
     "rtvc_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -37,9 +40,12 @@ SIGNATURES = {
     "rtvc_add_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rtvc_w8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rtvc_flash_attention": [_P] * 5 + [_I] * 5 + [_L] * 12
-                            + [_F, _I, _I, _I, _P],
+                            + [_F, _I, _I] + _DROPOUT + [_I, _P],
+    "rtvc_flash_attention_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12
+                                + [_F, _I, _I] + _DROPOUT + [_I, _P],
     "rtvc_blhd_attention": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _I, _P],
     "rtvc_w8a8_matmul": [_P] * 6 + [_I] * 4 + [_P],
+    "rtvc_dw3x3_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

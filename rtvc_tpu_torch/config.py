@@ -1,4 +1,4 @@
-"""The defaults of the caption step.
+"""The defaults of the caption step, the teacher and the train step.
 
 A copy of the values the port needs from the JAX package: importing
 ``rtvc_tpu.config`` would import ``rtvc_tpu``, whose ``__init__`` imports
@@ -11,9 +11,13 @@ jax. A test holds every field here equal to its JAX counterpart:
   ``rtvc_tpu/models/clip_vit.py``; :class:`GITConfig` ➜
   ``rtvc_tpu/models/git_teacher.py``; :class:`TeacherConfig` ➜
   ``rtvc_tpu/config.py`` ``TeacherConfig`` (``dtype`` as a torch dtype);
-- :class:`Config` ➜ the fields of ``rtvc_tpu.config.Config`` the student
-  and the teacher are built from: ``student``, ``teacher``,
-  ``tpu.compute_dtype``, ``tpu.quantize_teacher`` and ``data.num_frames``.
+- :class:`TrainConfig` ➜ the fields of ``rtvc_tpu/config.py``
+  ``TrainConfig`` that the train step reads: ``lr``, ``batch_size``, the
+  ``plateau_*`` scheduler and ``grad_accum_steps``;
+- :class:`Config` ➜ the fields of ``rtvc_tpu.config.Config`` the student,
+  the teacher and the train step are built from: ``student``, ``teacher``,
+  ``train``, ``tpu.compute_dtype``, ``tpu.quantize_teacher`` and
+  ``data.num_frames``.
 """
 
 from __future__ import annotations
@@ -113,9 +117,20 @@ class TeacherConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 1e-4
+    batch_size: int = 8
+    plateau_patience: int = 4
+    plateau_factor: float = 0.5
+    plateau_min_lr: float = 1e-8
+    grad_accum_steps: int = 1
+
+
+@dataclass(frozen=True)
 class Config:
     student: StudentConfig = field(default_factory=StudentConfig)
     teacher: TeacherConfig = field(default_factory=TeacherConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     compute_dtype: str = "bfloat16"      # TpuConfig.compute_dtype
     quantize_teacher: bool = False       # TpuConfig.quantize_teacher
     num_frames: int = 6                  # DataConfig.num_frames

@@ -1,20 +1,22 @@
-"""Shared layers: the sinusoidal positional encoding, TinyViT's MLP, and
-the key mapping of packed Linears.
+"""Shared layers: the sinusoidal positional encoding, TinyViT's MLP,
+DropPath, and the key mapping of packed Linears.
 
-Counterpart of ``rtvc_tpu/models/layers.py``. This package only runs
-inference, where ``DropPath`` and dropout are the identity, so neither
-exists here.
+Counterpart of ``rtvc_tpu/models/layers.py``. ``DropPath`` and the MLP's
+dropout act in train mode only, drawing from the explicit CPU
+``torch.Generator`` passed to ``forward`` (:mod:`..ops.dropout`); in eval
+mode they are the identity, as JAX's ``deterministic=True``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import drop_path, dropout
 from ..ops.layernorm import FusedLayerNorm
 
 
@@ -50,18 +52,39 @@ def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
-class Mlp(nn.Module):
-    """LayerNorm → Linear → GELU → Linear on ``[..., dim]`` tokens."""
+class DropPath(nn.Module):
+    """Stochastic depth: in train mode the whole residual branch of a
+    sample is dropped with probability ``rate``, kept ones scaled by
+    ``1 / (1 - rate)``."""
 
-    def __init__(self, dim: int, hidden: int, gelu_approximate: bool = False):
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return drop_path(x, self.rate if self.training else 0.0, generator)
+
+
+class Mlp(nn.Module):
+    """LayerNorm → Linear → GELU → dropout → Linear → dropout on
+    ``[..., dim]`` tokens (dropout in train mode only)."""
+
+    def __init__(self, dim: int, hidden: int, gelu_approximate: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.gelu_approximate = gelu_approximate
+        self.dropout = dropout
         self.norm = FusedLayerNorm(dim)
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(self.norm(x)), self.gelu_approximate))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        x = gelu(self.fc1(self.norm(x)), self.gelu_approximate)
+        x = dropout(x, rate, generator)
+        return dropout(self.fc2(x), rate, generator)
 
 
 def save_under_reference_keys(module: nn.Module, attr: str,

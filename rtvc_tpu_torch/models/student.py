@@ -1,6 +1,6 @@
 """StudentCandidateV1: TinyViT frame encoder + Transformer caption decoder.
 
-Counterpart of ``rtvc_tpu/models/student.py``, inference only. The module
+Counterpart of ``rtvc_tpu/models/student.py``. The module
 tree has the reference's state-dict keys (``image_encoder.model.*`` in
 timm's layout, ``decoder.layers.{i}.{self_attn, multihead_attn, linear1,
 linear2, norm1, norm2, norm3}``, ``embed``, ``linear``, ``projectors.{i}``,
@@ -21,13 +21,18 @@ Kept from the reference and the JAX model:
   the vocab projection runs on kernel K3.
 
 The distillation heads are built (their weights travel with a checkpoint)
-but the caption step never calls them.
+but the caption step never calls them; ``distill_forward`` returns what
+the train step's losses need. In train mode
+(``.train()``) the decoder applies dropout as the reference's
+``nn.TransformerDecoderLayer`` does (attention probabilities, the three
+residual branches, the FFN's hidden layer) and the encoder its DropPath and
+flax BatchNorm, all drawing from the CPU ``torch.Generator`` passed in.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,10 +40,11 @@ from torch import nn
 
 from ..config import Config, TinyViTConfig, tiny_vit_21m_config
 from ..ops.attention import multi_head_attention
+from ..ops.dropout import dropout
 from ..ops.int8_gemm import w8_dense
 from ..ops.layernorm import FusedLayerNorm
 from .layers import PositionalEncoding
-from .tinyvit import TinyViT, stage_means
+from .tinyvit import BatchNorm2d, TinyViT, stage_means
 
 Cache = Dict[str, torch.Tensor]
 
@@ -79,26 +85,36 @@ class MultiheadAttention(nn.Module):
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = False,
-               kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               kv_mask: Optional[torch.Tensor] = None,
+               dropout_rate: float = 0.0,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Heads ``q/k/v [B, H, L, hd]`` → ``out_proj`` of the merged output."""
-        out = multi_head_attention(q, k, v, causal=causal, kv_mask=kv_mask)
+        out = multi_head_attention(q, k, v, causal=causal, kv_mask=kv_mask,
+                                   dropout_rate=dropout_rate,
+                                   generator=generator)
         return self.out_proj(self._merge_heads(out))
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor, *,
                 causal: bool = False,
-                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kv_mask: Optional[torch.Tensor] = None,
+                dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         k, v = self.project_kv(kv_in)
         return self.attend(self.project_q(q_in), k, v, causal=causal,
-                           kv_mask=kv_mask)
+                           kv_mask=kv_mask, dropout_rate=dropout_rate,
+                           generator=generator)
 
 
 class TransformerDecoderLayer(nn.Module):
     """Post-norm decoder layer, ``nn.TransformerDecoderLayer`` semantics
-    (batch-first, ReLU, eps 1e-5) and parameter names."""
+    (batch-first, ReLU, eps 1e-5, ``dropout`` in train mode) and parameter
+    names."""
 
-    def __init__(self, d_model: int, n_head: int, d_ffn: int):
+    def __init__(self, d_model: int, n_head: int, d_ffn: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.n_head = n_head
+        self.dropout = dropout
         self.self_attn = MultiheadAttention(d_model, n_head)
         self.multihead_attn = MultiheadAttention(d_model, n_head)
         self.linear1 = nn.Linear(d_model, d_ffn)
@@ -107,15 +123,22 @@ class TransformerDecoderLayer(nn.Module):
         self.norm2 = FusedLayerNorm(d_model)
         self.norm3 = FusedLayerNorm(d_model)
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(F.relu(self.linear1(x)))
+    def _ffn(self, x: torch.Tensor, rate: float = 0.0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(F.relu(self.linear1(x)), rate, generator)
+        return self.linear2(h)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor, *,
-                tgt_kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, x, causal=True,
-                                          kv_mask=tgt_kv_mask))
-        x = self.norm2(x + self.multihead_attn(x, memory))
-        return self.norm3(x + self._ffn(x))
+                tgt_kv_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        kw = dict(dropout_rate=rate, generator=generator)
+        sa = self.self_attn(x, x, causal=True, kv_mask=tgt_kv_mask, **kw)
+        x = self.norm1(x + dropout(sa, rate, generator))
+        ca = self.multihead_attn(x, memory, **kw)
+        x = self.norm2(x + dropout(ca, rate, generator))
+        return self.norm3(x + dropout(self._ffn(x, rate, generator), rate,
+                                      generator))
 
     def init_cache(self, batch: int, max_len: int,
                    memory: torch.Tensor) -> Cache:
@@ -151,7 +174,8 @@ class StudentCandidateV1(nn.Module):
     """TinyViT-21M frame encoder + N-layer caption decoder."""
 
     def __init__(self, d_model: int = 576, n_head: int = 8,
-                 d_ffn: int = 1024, num_decoder_layers: int = 2,
+                 d_ffn: int = 1024, dropout: float = 0.3,
+                 num_decoder_layers: int = 2,
                  vocab_size: int = 30522, cls_token_id: int = 101,
                  sep_token_id: int = 102, max_pos_len: int = 500,
                  encoder_config: TinyViTConfig = tiny_vit_21m_config(),
@@ -167,7 +191,7 @@ class StudentCandidateV1(nn.Module):
         self.image_encoder = nn.ModuleDict(
             {"model": TinyViT(encoder_config, input_size)})
         self.decoder = nn.ModuleDict({"layers": nn.ModuleList(
-            [TransformerDecoderLayer(d_model, n_head, d_ffn)
+            [TransformerDecoderLayer(d_model, n_head, d_ffn, dropout)
              for _ in range(num_decoder_layers)])})
         self.embed = nn.Embedding(vocab_size, d_model)
         self.linear = nn.Linear(d_model, vocab_size)
@@ -181,7 +205,8 @@ class StudentCandidateV1(nn.Module):
         self.project_decoder = nn.Linear(d_model, teacher_hidden)
 
     # ---- encoder ----------------------------------------------------------
-    def forward_image_enc(self, x: torch.Tensor
+    def forward_image_enc(self, x: torch.Tensor,
+                          generator: Optional[torch.Generator] = None
                           ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """``x [B, F, H, W, 3]`` (or ``[B, F, 3, H, W]``) → (four NHWC stage
         maps of the B·F frames, memory ``[B, F, C]``: the last map's
@@ -189,7 +214,8 @@ class StudentCandidateV1(nn.Module):
         if x.shape[2] == 3 and x.shape[-1] != 3:
             x = x.permute(0, 1, 3, 4, 2)
         b, f = x.shape[:2]
-        fmaps = self.image_encoder["model"](x.reshape((b * f,) + x.shape[2:]))
+        fmaps = self.image_encoder["model"](x.reshape((b * f,) + x.shape[2:]),
+                                            generator)
         memory = stage_means(fmaps[-1:])[0].reshape(b, f, -1)
         return fmaps, memory
 
@@ -198,18 +224,53 @@ class StudentCandidateV1(nn.Module):
         emb = self.pos_enc(self.embed(y), offset=offset)
         return emb / math.sqrt(self.d_model)  # after the PE add (reference)
 
-    def forward_decoder(self, y: torch.Tensor,
-                        memory: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced decode of ``y [B, L]`` → logits ``[B, L, V]``;
-        keys at pad id 0 are masked."""
+    def forward_decoder(self, y: torch.Tensor, memory: torch.Tensor,
+                        generator: Optional[torch.Generator] = None,
+                        return_hidden: bool = False):
+        """Teacher-forced decode of ``y [B, L]`` → logits ``[B, L, V]``
+        (and each layer's output with ``return_hidden``); keys at pad id 0
+        are masked."""
         x = self._embed_tokens(y)
+        hidden: List[torch.Tensor] = []
         for layer in self.decoder["layers"]:
-            x = layer(x, memory, tgt_kv_mask=y != 0)
-        return self.linear(x)
+            x = layer(x, memory, tgt_kv_mask=y != 0, generator=generator)
+            hidden.append(x)
+        logits = self.linear(x)
+        return (logits, hidden) if return_hidden else logits
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> List[torch.Tensor]:
-        fmaps, memory = self.forward_image_enc(x)
-        return fmaps + [self.forward_decoder(y, memory)]
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        fmaps, memory = self.forward_image_enc(x, generator)
+        return fmaps + [self.forward_decoder(y, memory, generator)]
+
+    def distill_forward(self, x: torch.Tensor, y: torch.Tensor, *,
+                        generator: Optional[torch.Generator] = None,
+                        need_fmap: bool = False, need_visual: bool = False,
+                        need_decoder: bool = False) -> Dict[str, Any]:
+        """The train step's forward: ``logits`` and ``memory``, plus the
+        projected stage means (``proj_means``), the upsampled memory
+        (``student_visual``) and the projected decoder states
+        (``hidden_proj``) where the losses ask for them. Train or eval as
+        the module is set; ``generator`` feeds dropout in train mode."""
+        fmaps, memory = self.forward_image_enc(x, generator)
+        logits, hidden = self.forward_decoder(y, memory, generator,
+                                              return_hidden=True)
+        out: Dict[str, Any] = {"logits": logits, "memory": memory}
+        if need_fmap:
+            out["proj_means"] = self.project_stage_means(fmaps)
+        if need_visual:
+            up = self.upsample(memory.transpose(1, 2))
+            out["student_visual"] = self.project(up.transpose(1, 2))
+        if need_decoder:
+            out["hidden_proj"] = [self.project_decoder(h) for h in hidden]
+        return out
+
+    def project_stage_means(self, fmaps: List[torch.Tensor]
+                            ) -> List[torch.Tensor]:
+        """The four stage means projected to the teacher's width."""
+        return [proj(m) for proj, m in zip(self.projectors,
+                                           stage_means(fmaps))]
 
     # ---- incremental decode -------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
@@ -243,7 +304,7 @@ def student_from_config(cfg: Config, input_size: int = 224
     s = cfg.student
     enc = tiny_vit_21m_config(gelu_approximate=s.gelu_approximate)
     return StudentCandidateV1(
-        d_model=s.d_model, n_head=s.n_head, d_ffn=s.d_ffn,
+        d_model=s.d_model, n_head=s.n_head, d_ffn=s.d_ffn, dropout=s.dropout,
         num_decoder_layers=s.num_decoder_layers, vocab_size=s.vocab_size,
         cls_token_id=s.cls_token_id, sep_token_id=s.sep_token_id,
         max_pos_len=s.max_pos_len, encoder_config=enc, input_size=input_size,
@@ -273,10 +334,10 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, MultiheadAttention):
             normal(mod.in_proj_weight, mod.d_model ** -0.5)
             mod.in_proj_bias.zero_()
-        elif isinstance(mod, (FusedLayerNorm, nn.BatchNorm2d)):
+        elif isinstance(mod, (FusedLayerNorm, BatchNorm2d)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-            if isinstance(mod, nn.BatchNorm2d):
+            if isinstance(mod, BatchNorm2d):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
         if hasattr(mod, "attention_biases"):

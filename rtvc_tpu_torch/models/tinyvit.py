@@ -1,4 +1,4 @@
-"""TinyViT image encoder (the student's frame encoder), inference only.
+"""TinyViT image encoder (the student's frame encoder).
 
 Counterpart of ``rtvc_tpu/models/tinyvit.py``, grown from the timm-layout
 replica in ``tests/tinyvit_torch_replica.py``: the module tree and the
@@ -14,33 +14,98 @@ module's state dict as it is. Added to the replica:
 - LayerNorms through kernel K2;
 - the bias-index table built once per block, not per call;
 - NHWC in and NHWC stage maps out (the JAX layout); the convolutions run
-  NCHW inside.
+  NCHW inside;
+- train mode (``.train()``), as the JAX model runs with ``train=True``:
+  flax's BatchNorm (:class:`BatchNorm2d`), DropPath at the per-block rates
+  ``linspace(0, drop_path_rate)``, the MLP's dropout, and every stride-1
+  depthwise 3x3 (MBConv ``conv2``, each block's ``local_conv``) through
+  :func:`ops.depthwise.depthwise_conv3x3`, whose weight gradient is kernel
+  K9. The stride-2 depthwise conv of ``PatchMerging`` stays ``F.conv2d``,
+  as it stays a plain conv in JAX.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import TinyViTConfig, tiny_vit_21m_config
 from ..ops.attention import multi_head_attention
+from ..ops.depthwise import depthwise_conv3x3
 from ..ops.layernorm import FusedLayerNorm
-from .layers import Mlp, gelu
+from .layers import DropPath, Mlp, gelu
+
+BN_STATS = ("running_mean", "running_var")
+
+
+class BatchNorm2d(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW, with
+    ``nn.BatchNorm2d``'s state-dict keys.
+
+    Train mode normalises with the batch statistics (``F.batch_norm``
+    computes them in float32 for a bfloat16 input, with the biased
+    variance, as flax does) and updates ``running = 0.9 · running + 0.1 ·
+    batch`` with the biased variance of the float32 input, where
+    ``nn.BatchNorm2d`` would take the unbiased one. Eval mode is
+    ``F.batch_norm`` on the running statistics cast to the input dtype.
+    The running statistics stay float32 buffers whatever dtype the module
+    is cast to."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def _apply(self, fn, recurse=True):
+        stats = {name: self._buffers[name] for name in BN_STATS}
+        super()._apply(fn, recurse)
+        for name, t in stats.items():  # follow the device, not the dtype
+            self._buffers[name] = t.to(self._buffers[name].device,
+                                       torch.float32)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean.to(x.dtype),
+                                self.running_var.to(x.dtype), self.weight,
+                                self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class Conv2dBN(nn.Module):
-    """Conv2d without bias, then BatchNorm (running statistics)."""
+    """Conv2d without bias, then :class:`BatchNorm2d`. A stride-1
+    depthwise 3x3 runs through :func:`depthwise_conv3x3`."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
                  groups: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, k, stride, k // 2, groups=groups,
                               bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn = BatchNorm2d(cout, eps=1e-5)
+        self.depthwise3x3 = k == 3 and stride == 1 and groups == cin == cout
 
     def forward(self, x):
+        if self.depthwise3x3:
+            return self.bn(depthwise_conv3x3(x, self.conv.weight))
         return self.bn(self.conv(x))
 
 
@@ -60,20 +125,22 @@ class PatchEmbed(nn.Module):
 class MBConv(nn.Module):
     """Inverted-residual block of stage 0."""
 
-    def __init__(self, dim: int, expand_ratio: float, gelu_approximate: bool):
+    def __init__(self, dim: int, expand_ratio: float, gelu_approximate: bool,
+                 drop_path: float = 0.0):
         super().__init__()
         self.gelu_approximate = gelu_approximate
         hidden = int(dim * expand_ratio)
         self.conv1 = Conv2dBN(dim, hidden, 1)
         self.conv2 = Conv2dBN(hidden, hidden, 3, groups=hidden)
         self.conv3 = Conv2dBN(hidden, dim, 1)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         g = self.gelu_approximate
         shortcut = x
         x = gelu(self.conv1(x), g)
         x = gelu(self.conv2(x), g)
-        x = self.conv3(x)
+        x = self.drop_path(self.conv3(x), generator)
         return gelu(shortcut + x, g)
 
 
@@ -142,14 +209,16 @@ class TinyVitBlock(nn.Module):
     """Window attention + depthwise local conv + MLP, NCHW in and out."""
 
     def __init__(self, dim: int, num_heads: int, window: int,
-                 mlp_ratio: float, fmap: int, gelu_approximate: bool):
+                 mlp_ratio: float, fmap: int, gelu_approximate: bool,
+                 drop_path: float = 0.0, dropout: float = 0.0):
         super().__init__()
         self.window = min(window, fmap)
         self.attn = Attention(dim, num_heads, self.window)
         self.local_conv = Conv2dBN(dim, dim, 3, groups=dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approximate)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approximate, dropout)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         b, c, h, w = x.shape
         win = self.window
         shortcut = x
@@ -162,10 +231,10 @@ class TinyVitBlock(nn.Module):
         aw = self.attn(xw)
         aw = aw.view(b, hh // win, ww // win, win, win, c)
         aw = aw.permute(0, 5, 1, 3, 2, 4).reshape(b, c, hh, ww)
-        x = shortcut + aw[:, :, :h, :w]
+        x = shortcut + self.drop_path(aw[:, :, :h, :w], generator)
         x = self.local_conv(x)
         xt = x.flatten(2).transpose(1, 2).contiguous()  # [B, HW, C]
-        xt = xt + self.mlp(xt)
+        xt = xt + self.drop_path(self.mlp(xt, generator), generator)
         return xt.transpose(1, 2).reshape(b, c, h, w)
 
 
@@ -173,7 +242,9 @@ class TinyViT(nn.Module):
     """Four-stage TinyViT feature extractor (timm ``features_only``).
 
     ``input_size`` fixes each stage's map size, and with it the effective
-    window (``min(window, map)``) and the size of each bias table."""
+    window (``min(window, map)``) and the size of each bias table. Block
+    ``i`` of all blocks drops its paths at ``linspace(0, drop_path_rate)
+    [i]`` in train mode."""
 
     def __init__(self, config: TinyViTConfig = tiny_vit_21m_config(),
                  input_size: int = 224):
@@ -183,8 +254,11 @@ class TinyViT(nn.Module):
         self.config = cfg
         self.patch_embed = PatchEmbed(cfg.embed_dims[0], g)
         fmaps = [input_size // 4 // (2 ** s) for s in range(4)]
+        rates = iter(float(r) for r in np.linspace(0, cfg.drop_path_rate,
+                                                   sum(cfg.depths)))
         stages = [nn.ModuleDict({"blocks": nn.ModuleList(
-            [MBConv(cfg.embed_dims[0], cfg.mbconv_expand_ratio, g)
+            [MBConv(cfg.embed_dims[0], cfg.mbconv_expand_ratio, g,
+                    next(rates))
              for _ in range(cfg.depths[0])])})]
         for s in range(1, 4):
             stages.append(nn.ModuleDict({
@@ -193,13 +267,16 @@ class TinyViT(nn.Module):
                 "blocks": nn.ModuleList(
                     [TinyVitBlock(cfg.embed_dims[s], cfg.num_heads[s],
                                   cfg.window_sizes[s], cfg.mlp_ratio,
-                                  fmaps[s], g)
+                                  fmaps[s], g, next(rates), cfg.dropout)
                      for _ in range(cfg.depths[s])]),
             }))
         self.stages = nn.ModuleList(stages)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """``x [B, H, W, 3]`` → four stage maps ``[B, H_s, W_s, C_s]``."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        """``x [B, H, W, 3]`` → four stage maps ``[B, H_s, W_s, C_s]``.
+        ``generator`` (CPU) feeds DropPath and dropout in train mode."""
         x = x.permute(0, 3, 1, 2).to(self.patch_embed.conv1.conv.weight.dtype)
         x = self.patch_embed(x)
         maps = []
@@ -207,7 +284,7 @@ class TinyViT(nn.Module):
             if s > 0:
                 x = stage["downsample"](x)
             for blk in stage["blocks"]:
-                x = blk(x)
+                x = blk(x, generator)
             maps.append(x.permute(0, 2, 3, 1))
         return maps
 

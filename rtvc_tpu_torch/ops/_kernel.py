@@ -32,6 +32,17 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
         require(name, t.is_contiguous(), "tensors must be contiguous")
 
 
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a gradient through a kernel that has
+    no backward: its output, filled by the kernel, would carry no autograd
+    history and cut the gradient without an error."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; call it under "
+            f"torch.no_grad() or on tensors that do not require grad")
+
+
 def launch(fn_name: str, like: torch.Tensor, *args) -> None:
     """Call C entry ``fn_name`` with ``args`` and the current stream of
     ``like``'s device, and raise if ``cudaGetLastError()`` reports a failed

@@ -1,25 +1,37 @@
-"""Multi-head attention: the plain path and kernels K1, K4 and K5.
+"""Multi-head attention: the plain path and kernels K1, K4, K5 and K8.
 
 Counterpart of ``rtvc_tpu/ops/attention.py``:
 
 - :func:`attention_plain` is ``xla_attention`` (masks, learned bias, f32 or
-  input-dtype softmax) in plain PyTorch ops, as JAX runs it in XLA: the
-  student decoder's short self- and cross-attention;
+  input-dtype softmax, dropout on the probabilities) in plain PyTorch ops,
+  as JAX runs it in XLA: the student decoder's short self- and
+  cross-attention;
 - :func:`window_attention` is ``window_attention`` (the Pallas kernel
-  ``_window_attention_fwd_pallas``) as the CUDA kernel
-  ``csrc/window_attention.cu``, with :func:`window_attention_plain` beside
-  it: TinyViT's window attention with its relative-position bias;
-- :func:`flash_attention` is ``flash_attention`` (the Pallas kernel
-  ``_pallas_attention``, forward, no dropout) as the CUDA kernel K4 in
-  ``csrc/flash_attention.cu``, with :func:`flash_attention_plain` beside
-  it: the GIT teacher's joint prefix-causal attention;
+  ``_window_attention_fwd_pallas`` and its closed-form backward
+  ``_window_attention_bwd``) as the CUDA kernel ``csrc/window_attention.cu``
+  and :func:`window_attention_bwd_plain`, with :func:`window_attention_plain`
+  beside it: TinyViT's window attention with its relative-position bias;
+- :func:`flash_attention` is ``flash_attention`` (the Pallas kernels
+  ``_pallas_attention`` and ``_pallas_attention_bwd`` under one
+  ``custom_vjp``) as K4 and K8 in ``csrc/flash_attention.cu``, with
+  :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`
+  beside them: the GIT teacher's joint prefix-causal attention, with the
+  TPU kernel's in-kernel dropout (:func:`dropout_bits`, a counter hash of
+  the global (seed, batch, head, row, column), so that the backward
+  regenerates the forward's mask bit for bit);
 - :func:`blhd_attention` is ``blhd_attention`` as K5 (the same source, its
   own entry point), with :func:`blhd_attention_plain`: the CLIP tower's
   attention read in place from the QKV GEMM's ``[B, L, H, D]`` view;
 - :func:`multi_head_attention` routes as JAX does: bias-carrying, unmasked
-  window attention to K1, bias-free attention over at least
-  ``PALLAS_MIN_KV_LEN`` keys to K4, everything else (and everything when
-  ``use_pallas=False``) to the plain path.
+  window attention without dropout to K1, bias-free attention over at
+  least ``PALLAS_MIN_KV_LEN`` keys to K4, everything else (and everything
+  when ``use_pallas=False``) to the plain path.
+
+K1 and K4 are ``torch.autograd.Function``s: their forward takes the plain
+version for CPU tensors and the kernel for CUDA tensors, and their backward
+is one code path for both (K1's in PyTorch ops, as JAX writes it in XLA;
+K4's through :func:`flash_attention_bwd`, which launches K8 on a card). K5
+has no backward, as in JAX, and raises on CUDA inputs that require grad.
 
 Layout as in JAX: q/k/v ``[B, H, L, D]``, except for the BLHD functions.
 """
@@ -31,6 +43,7 @@ from typing import Optional
 import torch
 
 from . import _kernel
+from .dropout import draw_seed, uniform
 
 NEG_INF = -1e30
 
@@ -55,9 +68,13 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_mask: Optional[torch.Tensor] = None,
                     bias: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None,
+                    dropout_rate: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
                     softmax_in_input_dtype: bool = False) -> torch.Tensor:
-    """``xla_attention`` without dropout: scores and softmax in float32, or
-    in ``q.dtype`` with ``softmax_in_input_dtype``; probabilities cast to
+    """``xla_attention``: scores and softmax in float32, or in ``q.dtype``
+    with ``softmax_in_input_dtype``; with ``dropout_rate`` > 0 each
+    probability is kept where a uniform draw from ``generator`` is below
+    ``1 - rate`` and divided by ``1 - rate``; probabilities cast to
     ``v.dtype`` before the P.V product."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -68,9 +85,17 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      prefix_len, kv_mask, q.device).to(acc_t)
     if bias is not None:
         scores = scores + bias.to(acc_t)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.matmul(probs, v)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0:
+        keep = uniform(probs.shape, generator, probs.device) < 1.0 - dropout_rate
+        probs = torch.where(keep, probs / (1.0 - dropout_rate),
+                            probs.new_zeros(()))
+    return torch.matmul(probs.to(v.dtype), v)
 
+
+# ---------------------------------------------------------------------------
+# K1: window attention with the learned bias
+# ---------------------------------------------------------------------------
 
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, bias: torch.Tensor, *,
@@ -92,6 +117,34 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the dtype JAX's einsum promotes the two to."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(t), b.to(t))
+
+
+def window_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bias: torch.Tensor,
+                               g: torch.Tensor, *, scale: float,
+                               softmax_in_input_dtype: bool = False):
+    """(dq, dk, dv, dbias): ``_window_attention_bwd`` in PyTorch ops. The
+    probabilities are recomputed (the forward keeps no score tensor), the
+    score and softmax math in float32 or, with ``softmax_in_input_dtype``,
+    in the input dtype; dbias sums dS over the windows in float32."""
+    acc_t = q.dtype if softmax_in_input_dtype else torch.float32
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = s.to(acc_t) + bias[None].to(acc_t)
+    p = torch.softmax(s, dim=-1)
+    dv = _mm(p.to(v.dtype).transpose(-1, -2), g)
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2)).to(acc_t)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds_scaled = ds * scale
+    dq = _mm(ds_scaled, k).to(q.dtype)
+    dk = _mm(ds_scaled.transpose(-1, -2), q).to(k.dtype)
+    dbias = ds.float().sum(dim=0).to(bias.dtype)
+    return dq, dk, dv.to(v.dtype), dbias
+
+
 def _grid(b: int, h: int, n: int, device) -> tuple:
     """(windows per block, query rows per block): query chunks of at most
     64 rows, then windows grouped so that about 16 blocks land on each SM."""
@@ -100,23 +153,13 @@ def _grid(b: int, h: int, n: int, device) -> tuple:
     return max(1, (b * h * chunks) // (16 * sms)), -(-n // chunks)
 
 
-def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor, *, scale: Optional[float] = None,
-                     softmax_in_input_dtype: bool = False) -> torch.Tensor:
-    """softmax(q kᵀ·scale + bias[h]) v per window. q/k/v ``[B·nW, H, N, D]``,
-    bias ``[H, N, N]`` float32. CPU tensors take
-    :func:`window_attention_plain`; CUDA tensors launch K1 (contiguous,
-    float32 or bfloat16, N ≤ 256, D ≤ 64) or raise."""
-    b, h, n, d = q.shape
-    name = "window_attention"
-    _kernel.require(name, bias.shape == (h, n, n),
-                    f"bias must be [{h}, {n}, {n}], got {tuple(bias.shape)}")
-    if scale is None:
-        scale = d ** -0.5
+def _window_forward(q, k, v, bias, scale: float, native: bool):
+    """The plain version for CPU tensors, K1 for CUDA tensors."""
     if q.device.type == "cpu":
-        return window_attention_plain(
-            q, k, v, bias, scale=scale,
-            softmax_in_input_dtype=softmax_in_input_dtype)
+        return window_attention_plain(q, k, v, bias, scale=scale,
+                                      softmax_in_input_dtype=native)
+    name = "window_attention"
+    b, h, n, d = q.shape
     _kernel.require_cuda(name, q, k, v, bias)
     _kernel.require(name, q.shape == k.shape == v.shape,
                     "q, k and v must share a shape")
@@ -133,9 +176,43 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                        out.data_ptr(), b, h, n, d,
                        *_grid(b, h, n, q.device), float(scale),
-                       int(softmax_in_input_dtype), code)
+                       int(native), code)
         window_attention.launches += 1
     return out
+
+
+class _WindowAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, native):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale, ctx.native = scale, native
+        return _window_forward(q, k, v, bias, scale, native)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        grads = window_attention_bwd_plain(
+            q, k, v, bias, g, scale=ctx.scale,
+            softmax_in_input_dtype=ctx.native)
+        return (*grads, None, None)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, *, scale: Optional[float] = None,
+                     softmax_in_input_dtype: bool = False) -> torch.Tensor:
+    """softmax(q kᵀ·scale + bias[h]) v per window. q/k/v ``[B·nW, H, N, D]``,
+    bias ``[H, N, N]`` float32. CPU tensors take
+    :func:`window_attention_plain`; CUDA tensors launch K1 (contiguous,
+    float32 or bfloat16, N ≤ 256, D ≤ 64) or raise. Differentiable in q,
+    k, v and bias (:func:`window_attention_bwd_plain`)."""
+    b, h, n, d = q.shape
+    _kernel.require("window_attention", bias.shape == (h, n, n),
+                    f"bias must be [{h}, {n}, {n}], got {tuple(bias.shape)}")
+    if scale is None:
+        scale = d ** -0.5
+    return _WindowAttention.apply(q, k, v, bias, float(scale),
+                                  bool(softmax_in_input_dtype))
 
 
 window_attention.launches = 0
@@ -143,6 +220,45 @@ window_attention.launches = 0
 # bias-free attention over at least this many keys goes to K4 (JAX's
 # PALLAS_MIN_KV_LEN): the teacher's 1542- and 1582-key contexts
 PALLAS_MIN_KV_LEN = 512
+
+
+# ---------------------------------------------------------------------------
+# K4 / K8: flash attention with in-kernel dropout, forward and backward
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x · c mod 2^32`` for x in [0, 2^32) held in int64, in two 16-bit
+    halves of ``c`` so that no product leaves int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def dropout_bits(seed: int, b: int, h: int, lq: int, lkv: int,
+                 device=None) -> torch.Tensor:
+    """``_dropout_bits`` over the whole ``[b, h, lq, lkv]`` grid: the
+    uint32 murmur3-style hash of the global (seed, batch, head, row,
+    column), as int64 values in [0, 2^32). torch's uint32 has too few ops,
+    so every product is reduced mod 2^32 by :func:`_mul32`."""
+    i64 = dict(dtype=torch.int64, device=device)
+    r = torch.arange(lq, **i64)[:, None]
+    c = torch.arange(lkv, **i64)[None, :]
+    bi = torch.arange(b, **i64)[:, None, None, None]
+    hi = torch.arange(h, **i64)[None, :, None, None]
+    x = _mul32(r, 0x9E3779B1) ^ _mul32(c, 0x85EBCA77)
+    x = x ^ ((seed * 0xC2B2AE3D) & _M32)
+    x = x ^ ((_mul32(bi, 0x27D4EB2F) + _mul32(hi, 0x165667B1)) & _M32)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def dropout_threshold(rate: float) -> int:
+    """A score is kept where its bits are >= this (JAX's ``thresh``)."""
+    return int(rate * (2 ** 32))
 
 
 def _allowed(lq: int, lkv: int, causal: bool, prefix_len: int,
@@ -158,83 +274,244 @@ def _allowed(lq: int, lkv: int, causal: bool, prefix_len: int,
     return allowed
 
 
+def _flash_probs(q32, k32, causal, prefix_len, kv_mask, scale, dropout_rate,
+                 seed):
+    """(P, drop(P)) as ``_block_probs`` computes them, in float32."""
+    s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
+    if causal or kv_mask is not None:
+        s = s.masked_fill(~_allowed(q32.shape[2], k32.shape[2], causal,
+                                    prefix_len, kv_mask, q32.device), NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    if dropout_rate <= 0.0:
+        return p, p
+    b, h, lq, lkv = p.shape
+    keep = dropout_bits(seed, b, h, lq, lkv, p.device) >= dropout_threshold(
+        dropout_rate)
+    return p, torch.where(keep, p / (1.0 - dropout_rate), p.new_zeros(()))
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = False, prefix_len: int = 0,
                           kv_mask: Optional[torch.Tensor] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          dropout_rate: float = 0.0,
+                          seed: Optional[int] = None) -> torch.Tensor:
     """K4's arithmetic in PyTorch ops, as ``_block_probs`` computes it:
     float32 score products; disallowed scores set to -1e30 (a row with no
-    allowed key averages V uniformly); float32 softmax; float32
-    probabilities times float32 V; output in the input dtype."""
+    allowed key averages V uniformly); float32 softmax, its normaliser over
+    every key, kept or dropped; with ``dropout_rate`` > 0 a probability is
+    kept where ``dropout_bits(seed, ...)`` >= ``rate · 2^32`` and divided by
+    ``1 - rate``; float32 probabilities times float32 V; output in the input
+    dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal or kv_mask is not None:
-        s = s.masked_fill(~_allowed(q.shape[2], k.shape[2], causal,
-                                    prefix_len, kv_mask, q.device), NEG_INF)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    return torch.matmul(p, v.float()).to(q.dtype)
+    _, p_used = _flash_probs(q.float(), k.float(), causal, prefix_len,
+                             kv_mask, scale, dropout_rate, seed)
+    return torch.matmul(p_used, v.float()).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, g: torch.Tensor, *,
+                              causal: bool = False, prefix_len: int = 0,
+                              kv_mask: Optional[torch.Tensor] = None,
+                              scale: Optional[float] = None,
+                              dropout_rate: float = 0.0,
+                              seed: Optional[int] = None):
+    """(dq, dk, dv): the closed form of ``_make_bwd_kernel`` in PyTorch ops,
+    float32 throughout and cast to the input dtypes. P is recomputed; the
+    kept mask is recovered as drop(P) > 0; dS = P∘(dP − rowsum(P∘dP)) with
+    the row sum taken from the recomputed P and dP."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
+    p, p_used = _flash_probs(q32, k32, causal, prefix_len, kv_mask, scale,
+                             dropout_rate, seed)
+    dv = torch.matmul(p_used.transpose(-1, -2), g32)
+    dp = torch.matmul(g32, v32.transpose(-1, -2))
+    if dropout_rate > 0.0:
+        dp = torch.where(p_used > 0.0, dp / (1.0 - dropout_rate),
+                         dp.new_zeros(()))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, k32) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _strides(t: torch.Tensor, *dims: int) -> list:
     return [t.stride(d) for d in dims]
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = False, prefix_len: int = 0,
-                    kv_mask: Optional[torch.Tensor] = None,
-                    scale: Optional[float] = None, dropout_rate: float = 0.0,
-                    softmax_in_input_dtype: bool = False) -> torch.Tensor:
-    """Fused attention over q ``[B, H, Lq, D]``, k/v ``[B, H, Lkv, D]``
-    (any strides with D contiguous, e.g. head views of a packed QKV
-    product), ``kv_mask`` ``[B or 1, Lkv]`` bool (True = attend). Returns a
-    contiguous ``[B, H, Lq, D]``. CPU tensors take
-    :func:`flash_attention_plain`; CUDA tensors launch K4 (float32 or
-    bfloat16, D ≤ 64) or raise. The TPU kernel's in-kernel dropout and its
-    input-dtype softmax come with the backward kernel and raise here."""
-    name = "flash_attention"
-    if dropout_rate > 0.0 or softmax_in_input_dtype:
-        raise NotImplementedError(
-            f"{name}: dropout and the input-dtype softmax are not ported")
-    b, h, lq, d = q.shape
+def _dropout_args(dropout_rate: float, seed: Optional[int]) -> list:
+    """(seed, threshold, 1 - rate, on) as the kernels take them."""
+    if dropout_rate <= 0.0:
+        return [0, 0, 1.0, 0]
+    return [int(seed), dropout_threshold(dropout_rate),
+            float(1.0 - dropout_rate), 1]
+
+
+def _flash_checks(name, q, k, v, kv_mask, *more):
+    """Check what K4 and K8 take; returns the key mask as contiguous
+    ``[B, Lkv]`` bytes on q's device, or None."""
+    b, h, _, d = q.shape
     lkv = k.shape[2]
-    if scale is None:
-        scale = d ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     prefix_len=prefix_len, kv_mask=kv_mask,
-                                     scale=scale)
     _kernel.require(name, k.shape == v.shape == (b, h, lkv, d),
                     "k and v must be [B, H, Lkv, D] of q's B, H and D")
     _kernel.require(name, q.dtype == k.dtype == v.dtype,
                     "q, k and v must share a dtype")
     _kernel.require(name, d <= 64 and lkv >= 1,
                     f"takes D <= 64 and Lkv >= 1, got D={d}, Lkv={lkv}")
-    for t in (q, k, v):
+    for t in (q, k, v) + more:
         _kernel.require(name, t.is_cuda and t.device == q.device
                         and t.stride(3) == 1,
-                        f"q, k and v must lie on {q.device} with D contiguous")
-    mask_ptr = 0
-    if kv_mask is not None:
-        _kernel.require(name, kv_mask.shape in ((b, lkv), (1, lkv)),
-                        f"kv_mask must be [{b} or 1, {lkv}]")
-        kv_mask = kv_mask.to(q.device, torch.bool).expand(b, lkv).contiguous()
-        mask_ptr = kv_mask.data_ptr()
+                        f"tensors must lie on {q.device} with D contiguous")
+    if kv_mask is None:
+        return None
+    _kernel.require(name, kv_mask.shape in ((b, lkv), (1, lkv)),
+                    f"kv_mask must be [{b} or 1, {lkv}]")
+    return kv_mask.to(q.device, torch.bool).expand(b, lkv).contiguous()
+
+
+def _flash_forward(q, k, v, kv_mask, causal: bool, prefix_len: int,
+                   scale: float, dropout_rate: float, seed: Optional[int]):
+    """The plain version for CPU tensors, K4 for CUDA tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     prefix_len=prefix_len, kv_mask=kv_mask,
+                                     scale=scale, dropout_rate=dropout_rate,
+                                     seed=seed)
+    name = "flash_attention"
+    b, h, lq, d = q.shape
+    lkv = k.shape[2]
+    mask = _flash_checks(name, q, k, v, kv_mask)
     code = _kernel.dtype_code(name, q)
     out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     if b and lq:
         _kernel.launch("rtvc_flash_attention", q, q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), out.data_ptr(), mask_ptr, b, h, lq, lkv,
+                       v.data_ptr(), out.data_ptr(),
+                       0 if mask is None else mask.data_ptr(), b, h, lq, lkv,
                        d, *_strides(q, 0, 1, 2), *_strides(k, 0, 1, 2),
                        *_strides(v, 0, 1, 2), *_strides(out, 0, 1, 2),
-                       float(scale), int(causal), int(prefix_len), code)
+                       float(scale), int(causal), int(prefix_len),
+                       *_dropout_args(dropout_rate, seed), code)
         flash_attention.launches += 1
     return out
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, *, causal: bool = False,
+                        prefix_len: int = 0,
+                        kv_mask: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None,
+                        dropout_rate: float = 0.0,
+                        seed: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_attention` for the output gradient
+    ``g [B, H, Lq, D]``, in the input dtype. CPU tensors take
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch K8 (float32 or
+    bfloat16, D ≤ 64, D contiguous) or raise."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, g, causal=causal, prefix_len=prefix_len,
+            kv_mask=kv_mask, scale=scale, dropout_rate=dropout_rate,
+            seed=seed)
+    name = "flash_attention_bwd"
+    b, h, lq, d = q.shape
+    lkv = k.shape[2]
+    _kernel.require(name, g.shape == q.shape and g.dtype == q.dtype,
+                    "g must be q's shape and dtype")
+    mask = _flash_checks(name, q, k, v, kv_mask, g)
+    code = _kernel.dtype_code(name, q)
+    dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+                  for n in (lq, lkv, lkv))
+    # per query row: max, softmax normaliser and rowsum(P∘dP), float32
+    stats = torch.empty((3, b * h * lq), dtype=torch.float32,
+                        device=q.device)
+    if b and lq:
+        _kernel.launch("rtvc_flash_attention_bwd", q, q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                       stats.data_ptr(),
+                       0 if mask is None else mask.data_ptr(), b, h, lq, lkv,
+                       d, *_strides(q, 0, 1, 2), *_strides(k, 0, 1, 2),
+                       *_strides(v, 0, 1, 2), *_strides(g, 0, 1, 2),
+                       float(scale), int(causal), int(prefix_len),
+                       *_dropout_args(dropout_rate, seed), code)
+        flash_attention_bwd.launches += 1
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, prefix_len, scale,
+                dropout_rate, seed):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.args = dict(causal=causal, prefix_len=prefix_len, scale=scale,
+                        dropout_rate=dropout_rate, seed=seed)
+        return _flash_forward(q, k, v, kv_mask, causal, prefix_len, scale,
+                              dropout_rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        if g.stride(-1) != 1:
+            g = g.contiguous()
+        grads = flash_attention_bwd(q, k, v, g, kv_mask=kv_mask, **ctx.args)
+        return (*grads,) + (None,) * 6
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, prefix_len: int = 0,
+                    kv_mask: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None, dropout_rate: float = 0.0,
+                    seed: Optional[int] = None,
+                    generator: Optional[torch.Generator] = None,
+                    softmax_in_input_dtype: bool = False) -> torch.Tensor:
+    """Fused attention over q ``[B, H, Lq, D]``, k/v ``[B, H, Lkv, D]``
+    (any strides with D contiguous, e.g. head views of a packed QKV
+    product), ``kv_mask`` ``[B or 1, Lkv]`` bool (True = attend). Returns a
+    contiguous ``[B, H, Lq, D]``. CPU tensors take
+    :func:`flash_attention_plain`; CUDA tensors launch K4 (float32 or
+    bfloat16, D ≤ 64) or raise. Differentiable in q, k and v
+    (:func:`flash_attention_bwd`, K8 on a card).
+
+    ``dropout_rate`` > 0 drops probabilities inside the kernel by
+    :func:`dropout_bits` of ``seed``, an int in [0, 2^31 - 1), or of one
+    drawn from the CPU ``generator``; the backward regenerates the same
+    mask. The input-dtype softmax is not ported and raises."""
+    if softmax_in_input_dtype:
+        raise NotImplementedError(
+            "flash_attention: the input-dtype softmax is not ported "
+            "(ROADMAP Queue 2, K4/K8)")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if dropout_rate > 0.0:
+        if seed is None:
+            if generator is None:
+                raise ValueError("dropout_rate > 0 requires a seed or a "
+                                 "generator")
+            seed = draw_seed(generator)
+    else:
+        seed = None
+    return _FlashAttention.apply(q, k, v, kv_mask, bool(causal),
+                                 int(prefix_len), float(scale),
+                                 float(dropout_rate), seed)
+
+
 flash_attention.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K5: BLHD attention (inference only)
+# ---------------------------------------------------------------------------
 
 def blhd_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: Optional[float] = None) -> torch.Tensor:
@@ -251,13 +528,14 @@ def blhd_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (any strides with D contiguous: the q/k/v column blocks of the QKV
     product need no copy). Returns a contiguous ``[B, L, H, D]``. CPU
     tensors take :func:`blhd_attention_plain`; CUDA tensors launch K5
-    (float32 or bfloat16, D ≤ 64) or raise."""
+    (float32 or bfloat16, D ≤ 64, nothing requiring grad) or raise."""
     name = "blhd_attention"
     b, l, h, d = q.shape
     if scale is None:
         scale = d ** -0.5
     if q.device.type == "cpu":
         return blhd_attention_plain(q, k, v, scale=scale)
+    _kernel.require_no_grad(name, q, k, v)
     _kernel.require(name, q.shape == k.shape == v.shape,
                     "q, k and v must share a shape")
     _kernel.require(name, q.dtype == k.dtype == v.dtype,
@@ -286,16 +564,22 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_mask: Optional[torch.Tensor] = None,
                          bias: Optional[torch.Tensor] = None,
                          scale: Optional[float] = None,
+                         dropout_rate: float = 0.0,
+                         generator: Optional[torch.Generator] = None,
                          use_pallas: Optional[bool] = None,
                          softmax_in_input_dtype: bool = False
                          ) -> torch.Tensor:
     """JAX's routing: unmasked self-attention with an ``[H, N, N]`` (or
-    ``[1, H, N, N]``) bias goes to :func:`window_attention`; bias-free
-    attention over at least ``PALLAS_MIN_KV_LEN`` keys (or any, with
-    ``use_pallas=True``) to :func:`flash_attention`; the rest, and all of
-    it with ``use_pallas=False``, to :func:`attention_plain`."""
+    ``[1, H, N, N]``) bias and no dropout goes to :func:`window_attention`;
+    bias-free attention over at least ``PALLAS_MIN_KV_LEN`` keys (or any,
+    with ``use_pallas=True``) to :func:`flash_attention`; the rest, and all
+    of it with ``use_pallas=False``, to :func:`attention_plain`. Dropout
+    applies where ``dropout_rate`` > 0 and a CPU ``generator`` is given, as
+    JAX applies it where a ``dropout_rng`` is."""
     heads, lq, lkv = q.shape[1], q.shape[2], k.shape[2]
-    if (bias is not None and use_pallas is not False
+    rate = dropout_rate if dropout_rate > 0.0 and generator is not None \
+        else 0.0
+    if (bias is not None and use_pallas is not False and rate == 0.0
             and not causal and kv_mask is None
             and q.shape == k.shape == v.shape
             and tuple(bias.shape) in ((1, heads, lq, lkv), (heads, lq, lkv))):
@@ -307,7 +591,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if use_pallas:
         return flash_attention(q, k, v, causal=causal, prefix_len=prefix_len,
                                kv_mask=kv_mask, scale=scale,
+                               dropout_rate=rate, generator=generator,
                                softmax_in_input_dtype=softmax_in_input_dtype)
     return attention_plain(q, k, v, causal=causal, prefix_len=prefix_len,
                            kv_mask=kv_mask, bias=bias, scale=scale,
+                           dropout_rate=rate, generator=generator,
                            softmax_in_input_dtype=softmax_in_input_dtype)

@@ -38,10 +38,12 @@ def w8_matmul(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     """``x [M, K]`` float32/bfloat16, ``wq [K, N]`` int8, ``sw`` and ``bias``
     N float32 values → ``[M, N]`` in ``x.dtype``. CPU tensors take
     :func:`w8_matmul_plain`; CUDA tensors launch K3 (contiguous, M ≤ 32,
-    N a multiple of 4) or raise."""
+    N a multiple of 4, nothing requiring grad: K3 has no backward) or
+    raise."""
     if x.device.type == "cpu":
         return w8_matmul_plain(x, wq, sw, bias)
     name = "w8_matmul"
+    _kernel.require_no_grad(name, x, sw, bias)
     _kernel.require(name, x.dim() == 2 and wq.dim() == 2,
                     "x and wq must be 2-D")
     m, k = x.shape
@@ -101,10 +103,13 @@ def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
     values each) → ``[M, N]`` ``out_dtype``. CPU tensors take
     :func:`w8a8_matmul_plain`; CUDA tensors launch K7 or raise. K7 takes
     ``xq`` contiguous, ``wq`` the transposed view of a contiguous ``[N, K]``
-    pack, K a multiple of 16, ``out_dtype`` float32 or bfloat16."""
+    pack, K a multiple of 16, ``out_dtype`` float32 or bfloat16, and no
+    scale or bias requiring grad (K7 has no backward; per-token scales of
+    activations that require grad do)."""
     if xq.device.type == "cpu":
         return w8a8_matmul_plain(xq, sx, wq, sw, bias, out_dtype)
     name = "w8a8_matmul"
+    _kernel.require_no_grad(name, sx, sw, bias)
     _kernel.require(name, xq.dim() == 2 and wq.dim() == 2,
                     "xq and wq must be 2-D")
     m, k = xq.shape

@@ -5,7 +5,14 @@ Counterpart of ``rtvc_tpu/ops/layernorm.py``: ``_pallas_ln``,
 ``fused_layer_norm`` and ``FusedLayerNorm`` (K2), ``_pallas_add_ln``,
 ``fused_add_layer_norm`` and ``FusedAddLayerNorm`` (K6). Both kernels are
 in ``csrc/layer_norm.cu``. K2 serves every plain LayerNorm of the caption
-step and the teacher; K6 the residual add + norm at the CLIP blocks' ln_2.
+step, the teacher and the train step; K6 the residual add + norm at the
+CLIP blocks' ln_2.
+
+:func:`layer_norm` is a ``torch.autograd.Function``: its forward takes the
+plain version for CPU tensors and K2 for CUDA tensors, and its backward is
+``_fused_ln_bwd``'s closed form in PyTorch ops on both. K6 has no backward
+(the frozen teacher's norms need none) and raises on CUDA inputs that
+require grad.
 """
 
 from __future__ import annotations
@@ -28,11 +35,29 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm of ``x [..., W]``. CPU tensors take the plain version; CUDA
-    tensors launch K2 (x, weight and bias contiguous, of one dtype, float32
-    or bfloat16) or raise."""
+def layer_norm_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
+                         g: torch.Tensor, eps: float = 1e-5):
+    """(dx, dweight, dbias): ``_fused_ln_bwd`` in PyTorch ops, float32
+    statistics recomputed from x, cast to the input dtypes."""
+    width = x.shape[-1]
+    x32 = x.reshape(-1, width).float()
+    g32 = g.reshape(-1, width).float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    cent = x32 - mean
+    var = (cent * cent).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = cent * rstd
+    gy = g32 * weight.float()
+    dx = rstd * (gy - gy.mean(dim=-1, keepdim=True)
+                 - xhat * (gy * xhat).mean(dim=-1, keepdim=True))
+    dweight = (g32 * xhat).sum(dim=0)
+    dbias = g32.sum(dim=0)
+    return (dx.reshape(x.shape).to(x.dtype), dweight.to(weight.dtype),
+            dbias.to(weight.dtype))
+
+
+def _layer_norm_forward(x, weight, bias, eps: float):
+    """The plain version for CPU tensors, K2 for CUDA tensors."""
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps)
     name = "layer_norm"
@@ -51,6 +76,29 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                        float(eps), code)
         layer_norm.launches += 1
     return out
+
+
+class _LayerNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _layer_norm_forward(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        return (*layer_norm_bwd_plain(x, weight, g, ctx.eps), None)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm of ``x [..., W]``. CPU tensors take the plain version; CUDA
+    tensors launch K2 (x, weight and bias contiguous, of one dtype, float32
+    or bfloat16) or raise. Differentiable in x, weight and bias
+    (:func:`layer_norm_bwd_plain`)."""
+    return _LayerNorm.apply(x, weight, bias, float(eps))
 
 
 layer_norm.launches = 0
@@ -84,11 +132,12 @@ def fused_add_layer_norm(x: torch.Tensor, delta: torch.Tensor,
                          eps: float = 1e-5):
     """``(y, h) = (x + delta, LayerNorm(x + delta))`` over ``[..., W]``. CPU
     tensors take the plain version; CUDA tensors launch K6 (all contiguous,
-    of one dtype, float32 or bfloat16) or raise."""
+    of one dtype, float32 or bfloat16, nothing requiring grad) or raise."""
     if x.device.type == "cpu":
         return fused_add_layer_norm_plain(x, delta, weight, bias, eps)
     name = "fused_add_layer_norm"
     width = x.shape[-1]
+    _kernel.require_no_grad(name, x, delta, weight, bias)
     _kernel.require_cuda(name, x, delta, weight, bias)
     _kernel.require(name, delta.shape == x.shape,
                     "x and delta must share a shape")

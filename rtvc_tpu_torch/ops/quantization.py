@@ -10,7 +10,8 @@ Counterpart of ``rtvc_tpu/ops/quantization.py``:
   (JAX's ``QuantDense``) and :func:`quantize_teacher_` (JAX's
   ``quantize_teacher_params``): W8A8 dynamic inference of the frozen
   teacher, weights per output channel once at load, activations per token
-  at run time, the GEMM on kernel K7.
+  at run time, the GEMM on kernel K7. Inference only: on a card, K7 raises
+  where the activations require grad.
 """
 
 from __future__ import annotations

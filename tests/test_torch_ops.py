@@ -4,10 +4,13 @@ Inputs come from numpy seeds. The JAX side runs its Pallas kernels in
 interpret mode under ``default_matmul_precision("highest")``; the port runs
 the plain versions its wrappers take for CPU tensors. Tolerances:
 
-- 1e-5 for the float32 kernels (window, flash and BLHD attention,
-  LayerNorm, add + LayerNorm, w8 GEMV): the same arithmetic, summed in
-  another order; one bf16 ulp for the bf16 add + LayerNorm, where both round
-  one float32 result;
+- 1e-5 for the float32 kernels (window, flash and BLHD attention, with
+  and without dropout, LayerNorm, add + LayerNorm, w8 GEMV, the depthwise
+  weight gradient) and for the backward passes of K1, K2, K4 (K8) and the
+  depthwise conv against ``jax.vjp`` or the Pallas backward: the same
+  arithmetic, summed in another order; one bf16 ulp for the bf16 add +
+  LayerNorm, where both round one float32 result;
+- the dropout hash bit for bit: the same uint32 arithmetic;
 - 1e-6 relative for the W8A8 GEMM: its integer sums are exact on both
   sides, and only the float32 epilogue may round differently;
 - int8 packs identical, scales to 1e-7: the same float32 rounding;
@@ -25,17 +28,19 @@ import pytest
 import torch
 
 from rtvc_tpu.ops import attention as jattention
+from rtvc_tpu.ops import depthwise as jdepthwise
 from rtvc_tpu.ops import int8_gemm as jint8_gemm
 from rtvc_tpu.ops import layernorm as jlayernorm
 from rtvc_tpu.ops import preprocess as jpreprocess
 from rtvc_tpu.ops import quantization as jquantization
-from rtvc_tpu_torch.ops import attention, int8_gemm, layernorm, preprocess
-from rtvc_tpu_torch.ops import quantization
+from rtvc_tpu_torch.ops import _kernel, attention, depthwise, int8_gemm
+from rtvc_tpu_torch.ops import layernorm, preprocess, quantization
 
 KERNEL_WRAPPERS = (attention.window_attention, layernorm.layer_norm,
                    int8_gemm.w8_matmul, attention.flash_attention,
                    attention.blhd_attention, layernorm.fused_add_layer_norm,
-                   int8_gemm.w8a8_matmul)
+                   int8_gemm.w8a8_matmul, attention.flash_attention_bwd,
+                   depthwise.dw3x3_wgrad)
 
 
 def _t(a):
@@ -240,10 +245,13 @@ def test_multi_head_attention_routes_long_context_to_k4():
 
 
 def test_flash_attention_refuses_dropout_and_native_softmax():
+    """Dropout without a seed or a generator raises, as JAX's does without
+    a ``dropout_rng``; the input-dtype softmax is not ported."""
     q = torch.zeros(1, 1, 4, 8)
-    for kw in (dict(dropout_rate=0.1), dict(softmax_in_input_dtype=True)):
-        with pytest.raises(NotImplementedError):
-            attention.flash_attention(q, q, q, **kw)
+    with pytest.raises(ValueError, match="seed or a generator"):
+        attention.flash_attention(q, q, q, dropout_rate=0.1)
+    with pytest.raises(NotImplementedError):
+        attention.flash_attention(q, q, q, softmax_in_input_dtype=True)
 
 
 @pytest.mark.parametrize("l", [17, 70])
@@ -390,7 +398,205 @@ def test_cpu_tensors_never_launch_a_kernel():
     layernorm.fused_add_layer_norm(q, k, torch.ones(32), torch.zeros(32))
     int8_gemm.w8a8_matmul(torch.ones(2, 16, dtype=torch.int8), torch.ones(2),
                           torch.ones(16, 4, dtype=torch.int8), torch.ones(4))
-    assert [fn.launches for fn in KERNEL_WRAPPERS] == [0] * 7
+    attention.flash_attention_bwd(q, k, v, q, causal=True)
+    depthwise.dw3x3_wgrad(q, k)
+    assert [fn.launches for fn in KERNEL_WRAPPERS] == [0] * 9
+
+
+# ---------------------------------------------------------------------------
+# the train step's ops: dropout hash, K4 dropout, K8, K1/K2 backward, K9
+# ---------------------------------------------------------------------------
+
+SEED = 1234567
+
+
+def test_dropout_bits_match_jax():
+    """``dropout_bits`` over the whole grid equals ``_dropout_bits`` of
+    every (batch, head, q-block) on a ragged grid (37 rows in blocks of 16,
+    45 columns), bit for bit."""
+    b, h, lq, lkv, block_q = 2, 3, 37, 45, 16
+    got = attention.dropout_bits(SEED, b, h, lq, lkv).numpy()
+    assert got.min() >= 0 and got.max() < 2 ** 32
+    for bi in range(b):
+        for hi in range(h):
+            for qi in range(-(-lq // block_q)):
+                want = np.asarray(jattention._dropout_bits(
+                    jnp.int32(SEED), bi, hi, qi, (block_q, lkv), block_q))
+                rows = min(block_q, lq - qi * block_q)
+                np.testing.assert_array_equal(
+                    got[bi, hi, qi * block_q:qi * block_q + rows],
+                    want[:rows].astype(np.int64))
+
+
+FLASH_DROPOUT_CASES = [
+    ("prefix_causal", True, 50, 70, False),
+    ("key_masked", True, 50, 70, True),
+    ("ragged_lq", False, 0, 37, True),
+]
+
+
+def _flash_case(causal, prefix, lq, masked, seed=15):
+    b, h, lkv, d = 2, 3, 70, 16
+    q, k, v = _flash_inputs(b, h, lq, lkv, d, seed=seed)
+    g = np.random.default_rng(seed + 1).normal(
+        size=(b, h, lq, d)).astype(np.float32)
+    kv_mask = None
+    if masked:
+        kv_mask = np.ones((b, lkv), bool)
+        kv_mask[0, ::3] = False
+        kv_mask[1] = False
+    return (q, k, v, g, kv_mask,
+            dict(causal=causal, prefix_len=prefix, scale=d ** -0.5))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _tt(a):
+    return None if a is None else _t(a)
+
+
+@pytest.mark.parametrize("case,causal,prefix,lq,masked", FLASH_DROPOUT_CASES)
+def test_flash_attention_dropout_matches_pallas(case, causal, prefix, lq,
+                                                masked):
+    """K4's plain version with dropout 0.1 against ``_pallas_attention`` in
+    interpret mode with the same seed."""
+    q, k, v, _, kv_mask, kw = _flash_case(causal, prefix, lq, masked)
+    with jax.default_matmul_precision("highest"):
+        want = jattention._pallas_attention(
+            *map(jnp.asarray, (q, k, v)), _j(kv_mask), dropout_rate=0.1,
+            seed=jnp.int32(SEED), interpret=True, **kw)
+    got = attention.flash_attention(*map(_t, (q, k, v)),
+                                    kv_mask=_tt(kv_mask), dropout_rate=0.1,
+                                    seed=SEED, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    nodrop = attention.flash_attention_plain(*map(_t, (q, k, v)),
+                                             kv_mask=_tt(kv_mask), **kw)
+    assert not torch.allclose(got, nodrop)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("case,causal,prefix,lq,masked", FLASH_DROPOUT_CASES)
+def test_flash_attention_bwd_matches_pallas(case, causal, prefix, lq, masked,
+                                            rate):
+    """K8's plain version against ``_pallas_attention_bwd`` in interpret
+    mode (with a row that has no allowed key where masked), and autograd
+    through the port's ``flash_attention`` on the CPU gives the same
+    gradients."""
+    q, k, v, g, kv_mask, kw = _flash_case(causal, prefix, lq, masked)
+    with jax.default_matmul_precision("highest"):
+        want = jattention._pallas_attention_bwd(
+            *map(jnp.asarray, (q, k, v)), _j(kv_mask), jnp.asarray(g),
+            dropout_rate=rate, seed=jnp.int32(SEED) if rate else None,
+            interpret=True, **kw)
+    seed = SEED if rate else None
+    got = attention.flash_attention_bwd_plain(
+        *map(_t, (q, k, v, g)), kv_mask=_tt(kv_mask), dropout_rate=rate,
+        seed=seed, **kw)
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    attention.flash_attention(*leaves, kv_mask=_tt(kv_mask),
+                              dropout_rate=rate, seed=seed,
+                              **kw).backward(_t(g))
+    for name, p, a, w in zip("qkv", got, leaves, want):
+        w = np.asarray(w)
+        assert np.isfinite(p.numpy()).all()
+        np.testing.assert_allclose(p.numpy(), w, atol=1e-5, rtol=1e-5,
+                                   err_msg=f"d{name}")
+        np.testing.assert_array_equal(a.grad.numpy(), p.numpy())
+
+
+@pytest.mark.parametrize("native", [False, True])
+def test_window_attention_grads_match_jax(native):
+    """K1's backward (dq, dk, dv, dbias) against ``jax.vjp`` of
+    ``window_attention(..., interpret=True)``, whose VJP is
+    ``_window_attention_bwd``."""
+    q, k, v, bias = _window_inputs(16, seed=16)
+    g = np.random.default_rng(17).normal(size=q.shape).astype(np.float32)
+    scale = q.shape[-1] ** -0.5
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda *a: jattention.window_attention(
+            *a, scale=scale, softmax_in_input_dtype=native, interpret=True),
+            *map(jnp.asarray, (q, k, v, bias)))
+        want = vjp(jnp.asarray(g))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v, bias)]
+    out = attention.window_attention(*leaves, scale=scale,
+                                     softmax_in_input_dtype=native)
+    out.backward(_t(g))
+    for name, a, w in zip(("q", "k", "v", "bias"), leaves, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5, err_msg=f"d{name}")
+
+
+def test_layer_norm_grads_match_jax():
+    """K2's backward (dx, dweight, dbias) against ``jax.vjp`` of
+    ``_ln_reference`` on a [2, 7, 40] input."""
+    rng = np.random.default_rng(18)
+    x = (rng.normal(size=(2, 7, 40)) * 3 + 1).astype(np.float32)
+    w, b = (rng.normal(size=(40,)).astype(np.float32) for _ in range(2))
+    g = rng.normal(size=x.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jlayernorm._ln_reference(*a, 1e-5),
+                     *map(jnp.asarray, (x, w, b)))
+    want = vjp(jnp.asarray(g))
+    leaves = [_t(a).requires_grad_() for a in (x, w, b)]
+    layernorm.layer_norm(*leaves).backward(_t(g))
+    for name, a, wnt in zip(("x", "weight", "bias"), leaves, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(wnt),
+                                   atol=1e-5, rtol=1e-5, err_msg=f"d{name}")
+
+
+def _hwio_to_oihw(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a).transpose(3, 2, 0, 1))
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 9, 16), (3, 7, 5, 8)])
+def test_dw3x3_wgrad_matches_pallas(shape):
+    """K9's plain version on NCHW against ``dw3x3_wgrad_pallas`` (interpret
+    mode off a TPU) on NHWC, HWIO [3, 3, 1, C] turned to [C, 1, 3, 3]."""
+    rng = np.random.default_rng(19)
+    x, dy = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    want = jdepthwise.dw3x3_wgrad_pallas(jnp.asarray(x), jnp.asarray(dy))
+    got = depthwise.dw3x3_wgrad(*(_t(a.transpose(0, 3, 1, 2).copy())
+                                  for a in (x, dy)))
+    assert got.shape == (shape[-1], 1, 3, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _hwio_to_oihw(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_depthwise_conv3x3_grads_match_jax():
+    """``depthwise_conv3x3``'s output and (dx, dw) against ``jax.vjp`` of
+    the JAX op (custom VJP: flipped-kernel dgrad, one-pass wgrad)."""
+    rng = np.random.default_rng(20)
+    x = rng.normal(size=(2, 6, 7, 12)).astype(np.float32)
+    kernel = rng.normal(size=(3, 3, 1, 12)).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        out, vjp = jax.vjp(jdepthwise.depthwise_conv3x3, jnp.asarray(x),
+                           jnp.asarray(kernel))
+        dx, dw = vjp(jnp.asarray(g))
+    xt = _t(x.transpose(0, 3, 1, 2).copy()).requires_grad_()
+    wt = _t(_hwio_to_oihw(kernel)).requires_grad_()
+    got = depthwise.depthwise_conv3x3(xt, wt)
+    got.backward(_t(g.transpose(0, 3, 1, 2).copy()))
+    np.testing.assert_allclose(got.detach().numpy().transpose(0, 2, 3, 1),
+                               np.asarray(out), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy().transpose(0, 2, 3, 1),
+                               np.asarray(dx), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(wt.grad.numpy(), _hwio_to_oihw(dw),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_require_no_grad_refuses_tensors_that_need_a_gradient():
+    """The guard of the kernels without a backward (K3, K5, K6, K7 on a
+    card): it raises where autograd would need their gradient, and lets
+    through work under ``no_grad`` or on tensors that need none."""
+    x = torch.ones(2, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        _kernel.require_no_grad("blhd_attention", torch.ones(2), x)
+    _kernel.require_no_grad("blhd_attention", torch.ones(2), None)
+    with torch.no_grad():
+        _kernel.require_no_grad("blhd_attention", x)
 
 
 # ---------------------------------------------------------------------------
@@ -506,3 +712,52 @@ def test_w8a8_matmul_matches_plain_on_cuda(cuda, dtype, tol):
             int8_gemm.w8a8_matmul(xq, sx, pack.t(), sw, bb, dtype),
             int8_gemm.w8a8_matmul_plain(xq, sx, pack.t(), sw, bb, dtype),
             tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CUDA_TOLS)
+def test_flash_attention_bwd_matches_plain_on_cuda(cuda, dtype, tol):
+    """K8, with and without dropout, prefix-causal and key-masked with a
+    row that has no key left; the autograd of ``flash_attention`` launches
+    it and gives the same gradients."""
+    rand = _rand(cuda, torch.Generator().manual_seed(5))
+    q, k, v, g = (rand(2, 4, 300, 64).to(dtype) for _ in range(4))
+    mask = torch.ones(2, 300, dtype=torch.bool, device=cuda)
+    mask[1] = False
+    for kw in (dict(causal=True, prefix_len=260),
+               dict(kv_mask=mask, dropout_rate=0.1, seed=SEED)):
+        want = attention.flash_attention_bwd_plain(q, k, v, g, **kw)
+        got = attention.flash_attention_bwd(q, k, v, g, **kw)
+        for a, b in zip(got, want):
+            _assert_close_on_cuda(a, b, tol)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        attention.flash_attention(*leaves, **kw).backward(g)
+        for a, b in zip(leaves, got):
+            _assert_close_on_cuda(a.grad, b, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CUDA_TOLS)
+def test_dw3x3_wgrad_matches_plain_on_cuda(cuda, dtype, tol):
+    rand = _rand(cuda, torch.Generator().manual_seed(6))
+    x, dy = (rand(4, 24, 14, 14).to(dtype) for _ in range(2))
+    _assert_close_on_cuda(depthwise.dw3x3_wgrad(x, dy),
+                          depthwise.dw3x3_wgrad_plain(x, dy), tol)
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_raise_under_grad_on_cuda(cuda):
+    """K3, K5, K6 and K7 refuse inputs that require grad instead of
+    returning a tensor with no autograd history."""
+    x = torch.ones(4, 2, 2, 64, device=cuda, requires_grad=True)
+    w = torch.ones(64, device=cuda)
+    i8 = torch.ones(64, 8, dtype=torch.int8, device=cuda)
+    calls = [
+        lambda: attention.blhd_attention(x, x, x),
+        lambda: layernorm.fused_add_layer_norm(x, x, w, w),
+        lambda: int8_gemm.w8_matmul(x[0, 0], i8, torch.ones(8, device=cuda)),
+        lambda: quantization.int8_matmul(x, i8, torch.ones(8, device=cuda)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()

@@ -117,7 +117,9 @@ def test_port_imports_no_jax_flax_or_cv2():
                "rtvc_tpu_torch.models.clip_vit",
                "rtvc_tpu_torch.models.git_teacher",
                "rtvc_tpu_torch.models.convert", "rtvc_tpu_torch.decode",
-               "rtvc_tpu_torch.serving", "rtvc_tpu_torch.profile_teacher"]
+               "rtvc_tpu_torch.serving", "rtvc_tpu_torch.profile_teacher",
+               "rtvc_tpu_torch.ops.dropout", "rtvc_tpu_torch.ops.depthwise",
+               "rtvc_tpu_torch.distill", "rtvc_tpu_torch.train"]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
