@@ -16,7 +16,8 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    K4 with dropout, K8 (flash backward, with and without dropout) and K9
    (depthwise 3x3 weight gradient) at the train step's, in bfloat16 and
    float32, each held against its plain PyTorch version on the card and
-   timed against it with CUDA events. Then K8's one caller, the gradient
+   timed against it and its library yardstick, each as a replayed CUDA
+   graph of back-to-back calls. Then K8's one caller, the gradient
    of ``flash_attention`` through autograd, runs once at the joint shape
    with dropout, launch counts reset before and read after;
 4. slice: the full-width student (random weights from a seeded generator,
@@ -91,9 +92,9 @@ KERNELS = {
                    "rtvc_tpu/ops/layernorm.py:40"),
     "w8_matmul": ("rtvc_tpu_torch/csrc/w8_matmul.cu",
                   "rtvc_tpu/ops/int8_gemm.py:169"),
-    "flash_attention": ("rtvc_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention": ("rtvc_tpu_torch/csrc/flash_attention_sm90.cu",
                         "rtvc_tpu/ops/attention.py:274"),
-    "blhd_attention": ("rtvc_tpu_torch/csrc/flash_attention.cu",
+    "blhd_attention": ("rtvc_tpu_torch/csrc/flash_attention_sm90.cu",
                        "rtvc_tpu/ops/attention.py:642"),
     "fused_add_layer_norm": ("rtvc_tpu_torch/csrc/layer_norm.cu",
                              "rtvc_tpu/ops/layernorm.py:159"),
@@ -136,6 +137,66 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, warmup: int = 2) -> tuple:
+    """(mean ms per call of ``fn`` on the device, "graph" or "eager").
+    ``reps`` calls are captured into one CUDA graph and replayed between
+    CUDA events, so the host's time to launch each call (the wrappers'
+    checks, ctypes, the tensor maps) is left out: a short kernel would
+    otherwise be timed at the host's pace. Where capture fails (an op that
+    synchronises), the calls run back to back instead."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except Exception:  # whatever broke the capture, time the calls eagerly
+        del graph
+        torch.cuda.synchronize()
+        return cuda_ms(fn, reps, warmup=0), "eager"
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / reps, "graph"
+
+
+def sm90_sass(library) -> dict:
+    """What the bfloat16 K4/K5 kernels (``attention_sm90_kernel``) were
+    compiled to, from ``cuobjdump`` on the built library: their HGMMA
+    (warpgroup tensor-core product) and ``WARPGROUP.DEPBAR`` (wait for the
+    products) instructions, and registers per thread of each instance. A
+    DEPBAR per HGMMA would mean ptxas serialised the products."""
+    import re
+    from pathlib import Path
+    from rtvc_tpu_torch import _build
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, function = {"HGMMA": 0, "WARPGROUP.DEPBAR": 0}, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line
+        elif "attention_sm90" in function:
+            for op in out:
+                out[op] += op in line
+    usage = subprocess.run([tool, "-res-usage", str(library)],
+                           capture_output=True, text=True, check=True,
+                           timeout=300).stdout
+    out["registers"] = [int(m.group(1)) for m in re.finditer(
+        r"attention_sm90\S*\s+REG:(\d+)", usage)]
+    return out
+
+
 def rel_err(got, want) -> tuple:
     """(max |got - want|, that divided by max(1, max |want|))."""
     err = float((got.float() - want.float()).abs().max())
@@ -147,24 +208,31 @@ def rel_err(got, want) -> tuple:
 # ---------------------------------------------------------------------------
 
 def kernel_cases(dev, g):
-    """(kernel name, label, kernel call, plain call, timing reps) at the
-    main path's shapes. The caption step's: TinyViT window attention per
-    stage at batch 1 and 8 (6-frame windows), the decoder's [B, 576] norms
-    and TinyViT's stage-1 norm, the vocab GEMV at 1 and 8 rows. The
-    teacher's: the joint attention over 1542 visual + 40 text tokens at
-    batch 8 (on strided head views of the QKV product, as the model passes
-    them), a ragged and a key-masked case (one row with no key left), the
-    CLIP attention of 48 frames, the CLIP norms over 48 × 257 tokens at
-    eps 1e-5 and the joint norms over 8 × 1582 tokens at eps 1e-12, the
-    ln_2 add + norm, and the W8A8 GEMMs of a CLIP MLP (both Linears) at
+    """Each case as a dict: kernel name, label, the kernel call, the plain
+    call, timing reps, the work it must do (for its bound) and a maker of
+    its library yardstick (``rtvc_tpu_torch.yardsticks``), at the main
+    path's shapes. The caption step's: TinyViT window attention per stage
+    at batch 1 and 8 (6-frame windows), the decoder's [B, 576] norms and
+    TinyViT's stage-1 norm, the vocab GEMV at 1 and 8 rows. The teacher's:
+    the joint attention over 1542 visual + 40 text tokens at batch 8 (on
+    strided head views of the QKV product, as the model passes them), a
+    ragged and a key-masked case (one row with no key left), the CLIP
+    attention of 48 frames, the CLIP norms over 48 × 257 tokens at eps
+    1e-5 and the joint norms over 8 × 1582 tokens at eps 1e-12, the ln_2
+    add + norm, and the W8A8 GEMMs of a CLIP MLP (both Linears) at
     M = 12336, of the joint fc2 at M = 12656 (K up to 4096, where the
     int32 sums pass 2^24) and of the vocab projection at the
     teacher-forced M = 320 and a beam's M = 8. The train step's: K4 with
     dropout 0.1 at the joint shape, K8 there with and without dropout and
     on the ragged, key-masked case, K9 on the four stride-1 depthwise
     shapes of the batch-8 TinyViT (MBConv at stage 0, local_conv at
-    stages 1-3)."""
+    stages 1-3). In bfloat16, the edges of the tensor-core K4/K5: D = 32
+    and 40 (zero-padded columns), Lq = 1, Lkv below one 64-key tile, Lq
+    and Lkv off the 64/128 grid, a batch row with every key masked, BLHD
+    at L = 50, and the beam's visual prefill [8, 12, 1542, 64] (every key
+    visible)."""
     import torch
+    from rtvc_tpu_torch import yardsticks as Y
     from rtvc_tpu_torch.ops import attention, depthwise, int8_gemm, layernorm
 
     def rand(*shape, dtype=torch.float32, scale=1.0):
@@ -174,7 +242,31 @@ def kernel_cases(dev, g):
         return torch.randint(-127, 128, shape, generator=g,
                              dtype=torch.int8).to(dev)
 
+    def packed_heads(b, lq, h, d, dtype, pitch=None):
+        """q, k, v [b, h, lq, d]: head views of one packed QKV product,
+        each head's d columns the first of ``pitch`` (d by default)."""
+        pitch = pitch or d
+        qkv = rand(b, lq, 3, h, pitch, dtype=dtype)[..., :d]
+        return tuple(t.transpose(1, 2) for t in qkv.unbind(2))
+
     cases = []
+
+    def add(name, label, reps, kern, plain, args, kw, work, library):
+        cases.append(dict(
+            name=name, label=label, reps=reps,
+            kern=lambda: kern(*args, **kw), plain=lambda: plain(*args, **kw),
+            work=work(*args, **kw), library=lambda: library(*args, **kw)))
+
+    def flash(label, args, kw, reps=10):
+        add("flash_attention", label, reps, attention.flash_attention,
+            attention.flash_attention_plain, args, kw, Y.flash_work,
+            Y.flash_library)
+
+    def blhd(label, views, reps=10):
+        add("blhd_attention", label, reps, attention.blhd_attention,
+            attention.blhd_attention_plain, views, {}, Y.blhd_work,
+            Y.blhd_library)
+
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).removeprefix("torch.")
         for batch in (1, 8):
@@ -182,42 +274,34 @@ def kernel_cases(dev, g):
                     ((16, 6, 49), (1, 12, 196), (1, 18, 49)), start=1):
                 b = batch * FRAMES * nw
                 q, k, v = (rand(b, h, n, 32, dtype=dtype) for _ in range(3))
-                bias = rand(h, n, n, scale=0.5)
-                kw = dict(softmax_in_input_dtype=True)
-                cases.append((
-                    "window_attention",
-                    f"{dn} stage{stage} b{batch} [{b},{h},{n},32]",
-                    lambda q=q, k=k, v=v, bias=bias, kw=kw:
-                        attention.window_attention(q, k, v, bias, **kw),
-                    lambda q=q, k=k, v=v, bias=bias, kw=kw:
-                        attention.window_attention_plain(q, k, v, bias,
-                                                         **kw), 50))
+                add("window_attention",
+                    f"{dn} stage{stage} b{batch} [{b},{h},{n},32]", 50,
+                    attention.window_attention,
+                    attention.window_attention_plain,
+                    (q, k, v, rand(h, n, n, scale=0.5)),
+                    dict(softmax_in_input_dtype=True), Y.window_work,
+                    Y.window_library)
         for rows, width in ((8, 576), (8 * 25, 576),
                             (8 * FRAMES * 28 * 28, 192)):
-            x = rand(rows, width, dtype=dtype, scale=2.0)
-            w, bb = rand(width, dtype=dtype), rand(width, dtype=dtype)
-            cases.append((
-                "layer_norm", f"{dn} [{rows},{width}]",
-                lambda x=x, w=w, bb=bb: layernorm.layer_norm(x, w, bb),
-                lambda x=x, w=w, bb=bb: layernorm.layer_norm_plain(x, w, bb),
-                50))
+            add("layer_norm", f"{dn} [{rows},{width}]", 50,
+                layernorm.layer_norm, layernorm.layer_norm_plain,
+                (rand(rows, width, dtype=dtype, scale=2.0),
+                 rand(width, dtype=dtype), rand(width, dtype=dtype)), {},
+                Y.layer_norm_work, Y.layer_norm_library)
         wq = torch.randint(-127, 128, (576, 31744), generator=g,
                            dtype=torch.int8).to(dev)
         sw = (torch.rand(31744, generator=g) / (127 * 24)).to(dev)
         bb = rand(31744, scale=0.1)
         for m in (1, 8):
-            x = rand(m, 576, dtype=dtype)
-            cases.append((
-                "w8_matmul", f"{dn} M={m} [576,31744]",
-                lambda a=(x, wq, sw, bb): int8_gemm.w8_matmul(*a),
-                lambda a=(x, wq, sw, bb): int8_gemm.w8_matmul_plain(*a), 50))
+            add("w8_matmul", f"{dn} M={m} [576,31744]", 50,
+                int8_gemm.w8_matmul, int8_gemm.w8_matmul_plain,
+                (rand(m, 576, dtype=dtype), wq, sw, bb), {}, Y.w8_work,
+                Y.w8_library)
 
         # the teacher (K4-K7)
         b, h, lq, d, prefix = WINDOWS, 12, FRAMES * 257 + CAPTION_LEN, 64, \
             FRAMES * 257
-        qkv = rand(b, lq, 3 * h * d, dtype=dtype)
-        heads = tuple(t.transpose(1, 2)
-                      for t in qkv.view(b, lq, 3, h, d).unbind(2))
+        heads = packed_heads(b, lq, h, d, dtype)
         mask = torch.rand(b, lq, generator=g).to(dev) > 0.1
         mask[-1] = False
         ragged = (rand(2, h, 1000, d, dtype=dtype),
@@ -225,20 +309,13 @@ def kernel_cases(dev, g):
                   rand(2, h, 1037, d, dtype=dtype))
         drop = dict(dropout_rate=0.1, seed=DROPOUT_SEED)
         joint = dict(causal=True, prefix_len=prefix)
-        for label, args, kw in (
-                (f"joint [{b},{h},{lq},{d}] prefix {prefix}", heads, joint),
-                (f"ragged [2,{h},1000x1037,{d}] prefix 900", ragged,
-                 dict(causal=True, prefix_len=900)),
-                (f"key-masked [{b},{h},{lq},{d}]", heads,
-                 dict(joint, kv_mask=mask)),
-                (f"dropout 0.1 joint [{b},{h},{lq},{d}]", heads,
-                 dict(joint, **drop))):
-            cases.append((
-                "flash_attention", f"{dn} {label}",
-                lambda a=args, kw=kw: attention.flash_attention(*a, **kw),
-                lambda a=args, kw=kw: attention.flash_attention_plain(*a,
-                                                                      **kw),
-                10))
+        flash(f"{dn} joint [{b},{h},{lq},{d}] prefix {prefix}", heads, joint)
+        flash(f"{dn} ragged [2,{h},1000x1037,{d}] prefix 900", ragged,
+              dict(causal=True, prefix_len=900))
+        flash(f"{dn} key-masked [{b},{h},{lq},{d}]", heads,
+              dict(joint, kv_mask=mask))
+        flash(f"{dn} dropout 0.1 joint [{b},{h},{lq},{d}]", heads,
+              dict(joint, **drop))
         rmask = torch.rand(2, 1037, generator=g).to(dev) > 0.1
         rmask[-1] = False
         for label, args, kw in (
@@ -250,45 +327,69 @@ def kernel_cases(dev, g):
                 (f"key-masked ragged [2,{h},1000x1037,{d}] prefix 900",
                  ragged + (rand(2, h, 1000, d, dtype=dtype),),
                  dict(causal=True, prefix_len=900, kv_mask=rmask))):
-            cases.append((
-                "flash_attention_bwd", f"{dn} {label}",
-                lambda a=args, kw=kw: attention.flash_attention_bwd(*a, **kw),
-                lambda a=args, kw=kw: attention.flash_attention_bwd_plain(
-                    *a, **kw), 3))
+            add("flash_attention_bwd", f"{dn} {label}", 3,
+                attention.flash_attention_bwd,
+                attention.flash_attention_bwd_plain, args, kw,
+                Y.flash_bwd_work, Y.flash_bwd_library)
         for stage, (c, hw) in enumerate(((384, 56), (192, 28), (384, 14),
                                          (576, 7))):
-            x, dy = (rand(WINDOWS * FRAMES, c, hw, hw, dtype=dtype)
-                     for _ in range(2))
-            cases.append((
-                "dw3x3_wgrad",
-                f"{dn} stage{stage} [{WINDOWS * FRAMES},{c},{hw},{hw}]",
-                lambda a=(x, dy): depthwise.dw3x3_wgrad(*a),
-                lambda a=(x, dy): depthwise.dw3x3_wgrad_plain(*a), 20))
+            add("dw3x3_wgrad",
+                f"{dn} stage{stage} [{WINDOWS * FRAMES},{c},{hw},{hw}]", 20,
+                depthwise.dw3x3_wgrad, depthwise.dw3x3_wgrad_plain,
+                tuple(rand(WINDOWS * FRAMES, c, hw, hw, dtype=dtype)
+                      for _ in range(2)), {}, Y.dw3x3_wgrad_work,
+                Y.dw3x3_wgrad_library)
         clip_qkv = rand(WINDOWS * FRAMES, 257, 3 * 1024, dtype=dtype)
-        views = clip_qkv.view(WINDOWS * FRAMES, 257, 3, 16, 64).unbind(2)
-        cases.append((
-            "blhd_attention", f"{dn} clip [{WINDOWS * FRAMES},257,16,64]",
-            lambda a=views: attention.blhd_attention(*a),
-            lambda a=views: attention.blhd_attention_plain(*a), 10))
+        blhd(f"{dn} clip [{WINDOWS * FRAMES},257,16,64]",
+             clip_qkv.view(WINDOWS * FRAMES, 257, 3, 16, 64).unbind(2))
+        if dtype == torch.bfloat16:
+            # D = 40 on heads 48 columns apart: a 40-column row stride
+            # (80 B) is no multiple of 16 B, which TMA needs
+            for dd, pitch in ((32, 32), (40, 48)):
+                flash(f"{dn} edge: D={dd} [2,4,300,{dd}] prefix 260",
+                      packed_heads(2, 300, 4, dd, dtype, pitch),
+                      dict(causal=True, prefix_len=260))
+            kv = (rand(3, 4, 200, d, dtype=dtype),
+                  rand(3, 4, 200, d, dtype=dtype))
+            flash(f"{dn} edge: Lq=1 [3,4,1x200,{d}]",
+                  (rand(3, 4, 1, d, dtype=dtype),) + kv, {})
+            flash(f"{dn} edge: Lkv=37 [2,4,150x37,{d}] prefix 20",
+                  (rand(2, 4, 150, d, dtype=dtype),
+                   rand(2, 4, 37, d, dtype=dtype),
+                   rand(2, 4, 37, d, dtype=dtype)),
+                  dict(causal=True, prefix_len=20))
+            odd = (rand(2, 3, 200, d, dtype=dtype),
+                   rand(2, 3, 333, d, dtype=dtype),
+                   rand(2, 3, 333, d, dtype=dtype))
+            flash(f"{dn} edge: Lq=200 Lkv=333 [2,3,200x333,{d}] prefix 150",
+                  odd, dict(causal=True, prefix_len=150))
+            omask = torch.rand(2, 333, generator=g).to(dev) > 0.5
+            omask[1] = False
+            flash(f"{dn} edge: fully masked batch row [2,3,200x333,{d}]",
+                  odd, dict(kv_mask=omask))
+            blhd(f"{dn} edge: BLHD L=50 [{WINDOWS * FRAMES},50,16,64]",
+                 rand(WINDOWS * FRAMES, 50, 3 * 1024, dtype=dtype).view(
+                     WINDOWS * FRAMES, 50, 3, 16, 64).unbind(2))
+            flash(f"{dn} edge: beam prefill [{b},{h},{prefix},{d}]",
+                  packed_heads(b, prefix, h, d, dtype),
+                  dict(causal=True, prefix_len=prefix))
         rows = WINDOWS * FRAMES * 257
         joint_rows = WINDOWS * lq
         for width, n, eps in ((1024, rows, 1e-5), (768, joint_rows, 1e-12)):
             # row scales from 1e-3 to 2: the small-variance rows tell the
             # two eps values apart, so a kernel given the wrong one fails
             scale = torch.logspace(-3, 0.3, n).to(dev)[:, None]
-            x = (rand(n, width) * scale).to(dtype)
-            w, bb = rand(width, dtype=dtype), rand(width, dtype=dtype)
-            cases.append((
-                "layer_norm", f"{dn} teacher [{n},{width}] eps {eps:g}",
-                lambda a=(x, w, bb, eps): layernorm.layer_norm(*a),
-                lambda a=(x, w, bb, eps): layernorm.layer_norm_plain(*a), 10))
-        x, dx = (rand(rows, 1024, dtype=dtype, scale=2.0) for _ in range(2))
-        w, bb = rand(1024, dtype=dtype), rand(1024, dtype=dtype)
-        cases.append((
-            "fused_add_layer_norm", f"{dn} [{rows},1024]",
-            lambda a=(x, dx, w, bb): layernorm.fused_add_layer_norm(*a),
-            lambda a=(x, dx, w, bb): layernorm.fused_add_layer_norm_plain(*a),
-            10))
+            add("layer_norm", f"{dn} teacher [{n},{width}] eps {eps:g}", 10,
+                layernorm.layer_norm, layernorm.layer_norm_plain,
+                ((rand(n, width) * scale).to(dtype), rand(width, dtype=dtype),
+                 rand(width, dtype=dtype), eps), {}, Y.layer_norm_work,
+                Y.layer_norm_library)
+        add("fused_add_layer_norm", f"{dn} [{rows},1024]", 10,
+            layernorm.fused_add_layer_norm,
+            layernorm.fused_add_layer_norm_plain,
+            tuple(rand(rows, 1024, dtype=dtype, scale=2.0) for _ in range(2))
+            + (rand(1024, dtype=dtype), rand(1024, dtype=dtype)), {},
+            Y.add_layer_norm_work, Y.add_layer_norm_library)
         for label, m, k, n in (("clip fc", rows, 1024, 3072),
                                ("clip c_proj", rows, 4096, 1024),
                                ("joint fc2", joint_rows, 3072, 768),
@@ -297,22 +398,37 @@ def kernel_cases(dev, g):
             xq, pack = int8(m, k), int8(n, k)
             sx = torch.rand(m, generator=g).to(dev) * 0.02 + 1e-3
             swn = torch.rand(n, generator=g).to(dev) * 1e-3 + 1e-4
-            bn = rand(n, scale=0.1)
-            args = (xq, sx, pack.t(), swn, bn, dtype)
-            cases.append((
-                "w8a8_matmul", f"{dn} {label} M={m} [{k}->{n}]",
-                lambda a=args: int8_gemm.w8a8_matmul(*a),
-                lambda a=args: int8_gemm.w8a8_matmul_plain(*a), 10))
+            add("w8a8_matmul", f"{dn} {label} M={m} [{k}->{n}]", 10,
+                int8_gemm.w8a8_matmul, int8_gemm.w8a8_matmul_plain,
+                (xq, sx, pack.t(), swn, rand(n, scale=0.1), dtype), {},
+                Y.w8a8_work, Y.w8a8_library)
     return cases
+
+
+def library_ms(yardstick, reps: int) -> tuple:
+    """(device ms per call or None, the call's name) of a library
+    yardstick. A call the card's torch refuses (a shape or type it does not
+    take) is recorded as none, with the reason."""
+    if yardstick.fn is None:
+        return None, yardstick.name
+    try:
+        return device_ms(yardstick.fn, reps)[0], yardstick.name
+    except (RuntimeError, NotImplementedError) as e:
+        reason = str(e).strip().splitlines()[0][:120]
+        return None, f"none: {yardstick.name} raised {reason}"
 
 
 def kernel_phase(dev):
     import torch
     g = torch.Generator().manual_seed(SEED)
+    log(f"  torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32} (K9's float32 yardstick, "
+        f"conv2d_weight, runs in TF32 where True)")
     records = []
-    for name, label, kern, plain, reps in kernel_cases(dev, g):
-        got = kern()
-        want = plain()
+    for c in kernel_cases(dev, g):
+        name, label, reps = c["name"], c["label"], c["reps"]
+        got = c["kern"]()
+        want = c["plain"]()
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [
             (got, want)]
@@ -320,17 +436,29 @@ def kernel_phase(dev):
         errs = [rel_err(a, b) for a, b in pairs]
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
         finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
-        ms = cuda_ms(kern, reps, warmup=2)
-        plain_ms = cuda_ms(plain, reps, warmup=2)
+        del got, want, pairs
+        ms, timing = device_ms(c["kern"], reps)
+        plain_ms, plain_timing = device_ms(c["plain"], reps)
+        lib_ms, lib_call = library_ms(c["library"](), reps)
+        bound_s, bound_by = c["work"].bound()
         ok = rel <= TOL[dtype] and finite
-        log(f"  {name:20s} {label:46s} max_abs_err {err:.3e} (tol "
+        lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
+        log(f"  {name:20s} {label:52s} max_abs_err {err:.3e} (tol "
             f"{TOL[dtype]:g} rel) kernel {ms * 1e3:10.2f} us  plain "
-            f"{plain_ms * 1e3:10.2f} us  {'ok' if ok else 'FAIL'}")
+            f"{plain_ms * 1e3:10.2f} us  bound {bound_s * 1e6:.2f} us "
+            f"({bound_by}, {bound_s * 1e3 / ms:.1%})  library {lib}  "
+            f"[{timing}/{plain_timing}] {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} {label}: kernel disagrees with "
                                  f"its plain version ({err:.3e})")
-        records.append(dict(name=name, case=label, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms))
+        records.append(dict(
+            name=name, case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            timing=timing, plain_timing=plain_timing,
+            bound_us=bound_s * 1e6, bound_by=bound_by,
+            roofline_share=bound_s * 1e3 / ms,
+            library_us=None if lib_ms is None else lib_ms * 1e3,
+            library_call=lib_call))
+        torch.cuda.empty_cache()
     return records
 
 
@@ -533,7 +661,8 @@ def slice_phase(dev) -> dict:
     from rtvc_tpu_torch.serving import truncate_at_sep, with_vocab_w8
 
     g = torch.Generator().manual_seed(SEED)
-    student_f32 = random_init_(student_from_config(cfg), g).eval()
+    student_f32 = random_init_(student_from_config(cfg, device="cpu"),
+                               g).eval()
     windows_cpu = make_windows(g)
     windows = windows_cpu.to(dev)
     student = copy.deepcopy(student_f32).to(dev, cfg.dtype)
@@ -696,7 +825,7 @@ def teacher_phase(dev) -> dict:
     from rtvc_tpu_torch.ops.quantization import QuantLinear, quantize_teacher_
 
     g = torch.Generator().manual_seed(SEED + 1)
-    teacher = random_init_(teacher_from_config(cfg), g).eval().to(dev)
+    teacher = random_init_(teacher_from_config(cfg, device=dev), g).eval()
     tc = teacher.config
     blocks, joint, vocab = tc.clip.layers, tc.num_layers, tc.vocab_size
     tokens = FRAMES * ((tc.clip.image_size // tc.clip.patch_size) ** 2 + 1)
@@ -860,7 +989,7 @@ def train_f32_check(dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(SEED + 8)
     student = student_lib.random_init_(
-        student_lib.student_from_config(cfg), g)
+        student_lib.student_from_config(cfg, device="cpu"), g)
     for mod in student.modules():
         if isinstance(mod, student_lib.TransformerDecoderLayer):
             mod.dropout = 0.0
@@ -922,9 +1051,9 @@ def train_phase(dev) -> dict:
 
     g = torch.Generator().manual_seed(SEED + 3)
     student = student_lib.random_init_(
-        student_lib.student_from_config(cfg), g).to(dev)
+        student_lib.student_from_config(cfg, device=dev), g)
     teacher = git_teacher.random_init_(
-        git_teacher.teacher_from_config(cfg), g).to(dev)
+        git_teacher.teacher_from_config(cfg, device=dev), g)
     batch = train_batch(g, dev)
     optimizer = Adam(cfg.train.lr)
     state = create_train_state(student, optimizer, cfg.dtype)
@@ -997,6 +1126,12 @@ def main(argv=None) -> int:
     _build.lib()
     log(f"[build] {len(_build.sources())} sources -> "
         f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    sass = sm90_sass(_build.library_path())
+    log(f"[build] tensor-core K4/K5 kernels' SASS: {sass['HGMMA']} HGMMA, "
+        f"{sass['WARPGROUP.DEPBAR']} WARPGROUP.DEPBAR, registers "
+        f"{sass['registers']}")
+    if sass["HGMMA"] == 0:
+        raise AssertionError("the bf16 K4/K5 kernels hold no HGMMA")
 
     log("[kernels] kernel vs plain on the card")
     records = kernel_phase(dev)
@@ -1029,7 +1164,12 @@ def main(argv=None) -> int:
                    launches=sl["launches"][name] + te["launches"][name]
                    + tr["launches"][name],
                    max_abs_err=max(r["max_abs_err"] for r in mine),
-                   ms=head["ms"], plain_ms=head["plain_ms"])
+                   ms=head["ms"], plain_ms=head["plain_ms"],
+                   bound_ms=head["bound_us"] / 1e3,
+                   bound_by=head["bound_by"],
+                   library_ms=None if head["library_us"] is None
+                   else head["library_us"] / 1e3,
+                   library_call=head["library_call"], case=head["case"])
         if name == "flash_attention_bwd":
             row.update(launches=grad_path[name],
                        launches_from="flash_attention autograd, kernel phase")

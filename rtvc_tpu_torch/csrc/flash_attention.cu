@@ -16,20 +16,25 @@
 // joint attention ([8, 12, 1582, 64], prefix 1542) and the beam's visual
 // prefill ([B * beams, 12, 1542, 64], every key visible).
 //
+// The forward kernel below serves float32 inputs only: both entry points
+// hand bfloat16 calls to the tensor-core kernel of
+// flash_attention_sm90.cu, which computes the same function.
+//
 // K5 replaces rtvc_tpu/ops/attention.py blhd_attention (_make_blhd_kernel):
 // the same arithmetic with no mask, reading q/k/v in place from the QKV
 // GEMM's [B, L, H, D] view through strides and writing [B, L, H, D], so no
 // head transpose is copied around it. It serves the CLIP tower's 24
-// attention layers ([B * 6, 257, 16, 64]). Both entry points run the one
-// forward kernel below; only their strides and masks differ.
+// attention layers ([B * 6, 257, 16, 64]). For float32, both entry points
+// run the one forward kernel below; only their strides and masks differ.
 //
 // What bounds the forward on an H100: float32 arithmetic. The TPU kernel
 // holds one head's whole K and V in VMEM (1582 x 64 x 4 B each); a block's
 // shared memory cannot, so K and V stream through it in 64-key tiles with
 // an online softmax (running float32 max and sum per row, rescaling the
 // accumulator when the max grows). The products stay in float32 on the
-// CUDA cores, as the TPU kernel's f32 dots are: bf16 tensor cores would
-// round the probabilities and TF32 the scores. A block of 256 threads owns
+// CUDA cores, as the TPU kernel's f32 dots are: TF32 tensor cores would
+// round float32 inputs, and no tensor-core product is exact for them (bf16
+// inputs are exact in a bf16 product). A block of 256 threads owns
 // 64 query rows; thread (ty, tx) holds the scores and output columns
 // tx + 16 j of rows ty + 16 i in registers (a 4 x 4 register tile: 16 FMAs
 // per 8 shared-memory loads). K is staged transposed and every tile row is
@@ -59,6 +64,7 @@
 // conflict-free shared-memory layout are the forward's.
 
 #include "common.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace rtvc {
 namespace {
@@ -545,12 +551,18 @@ extern "C" int rtvc_flash_attention(
     long long ol, float scale, int causal, int prefix_len, unsigned seed,
     unsigned thresh, float keep, int dropout, int dtype, void* stream) {
   if (rtvc::bad_shape(B, H, D, Lq, Lkv)) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == rtvc::kBFloat16) {
+    const rtvc::Sm90Attention a{
+        q, k, v, out, static_cast<const uint8_t*>(kv_mask), B, H, Lq, Lkv, D,
+        qb, qh, ql, kb, kh, kl, vb, vh, vl, ob, oh, ol, scale, causal,
+        prefix_len, seed, thresh, keep, dropout};
+    return rtvc::attention_sm90(a, s);
+  }
   const rtvc::Args a{q, k, v, out, static_cast<const uint8_t*>(kv_mask),
                      H, Lq, Lkv, D, qb, qh, ql, kb, kh, kl, vb, vh, vl,
                      ob, oh, ol, scale, causal, prefix_len,
                      {seed, thresh, keep, dropout}};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == rtvc::kBFloat16) return rtvc::forward<__nv_bfloat16>(a, B, s);
   return rtvc::forward<float>(a, B, s);
 }
 
@@ -563,11 +575,16 @@ extern "C" int rtvc_blhd_attention(
     float scale, int dtype, void* stream) {
   if (rtvc::bad_shape(B, H, D, L, L)) return (int)cudaErrorInvalidValue;
   const long long ol = (long long)H * D;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == rtvc::kBFloat16) {
+    const rtvc::Sm90Attention a{
+        q, k, v, out, nullptr, B, H, L, L, D, qb, qh, ql, kb, kh, kl, vb, vh,
+        vl, (long long)L * ol, D, ol, scale, 0, 0, 0u, 0u, 1.f, 0};
+    return rtvc::attention_sm90(a, s);
+  }
   const rtvc::Args a{q, k, v, out, nullptr, H, L, L, D, qb, qh, ql, kb, kh,
                      kl, vb, vh, vl, (long long)L * ol, D, ol, scale, 0, 0,
                      {0u, 0u, 1.f, 0}};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == rtvc::kBFloat16) return rtvc::forward<__nv_bfloat16>(a, B, s);
   return rtvc::forward<float>(a, B, s);
 }
 

@@ -278,8 +278,9 @@ def quantize_teacher_variables(model: GITTeacher) -> GITTeacher:
     return quantize_teacher_(model)
 
 
-def teacher_from_config(cfg: Config) -> GITTeacher:
-    """The teacher of a :class:`~rtvc_tpu_torch.config.Config`: CLIP
+def teacher_from_config(cfg: Config, device="cuda") -> GITTeacher:
+    """The teacher of a :class:`~rtvc_tpu_torch.config.Config` on
+    ``device`` (the card unless the caller asks for ``"cpu"``): CLIP
     ViT-L/14 and the configured textual head in ``cfg.dtype``, W8A8 with
     ``cfg.quantize_teacher``."""
     t = cfg.teacher
@@ -292,7 +293,7 @@ def teacher_from_config(cfg: Config) -> GITTeacher:
         num_image_with_embedding=t.num_image_with_embedding,
         clip=clip_vit_l14_config(dtype=cfg.dtype,
                                  quantized=cfg.quantize_teacher),
-        dtype=cfg.dtype, quantized=cfg.quantize_teacher))
+        dtype=cfg.dtype, quantized=cfg.quantize_teacher)).to(device)
 
 
 @torch.no_grad()

@@ -297,10 +297,11 @@ class StudentCandidateV1(nn.Module):
         return self.linear(x)[:, 0], caches
 
 
-def student_from_config(cfg: Config, input_size: int = 224
-                        ) -> StudentCandidateV1:
-    """Build the student of a :class:`~rtvc_tpu_torch.config.Config`
-    (float32 parameters; cast with ``.to(cfg.dtype)``)."""
+def student_from_config(cfg: Config, input_size: int = 224,
+                        device="cuda") -> StudentCandidateV1:
+    """Build the student of a :class:`~rtvc_tpu_torch.config.Config` on
+    ``device`` (the card unless the caller asks for ``"cpu"``; float32
+    parameters; cast with ``.to(cfg.dtype)``)."""
     s = cfg.student
     enc = tiny_vit_21m_config(gelu_approximate=s.gelu_approximate)
     return StudentCandidateV1(
@@ -311,7 +312,7 @@ def student_from_config(cfg: Config, input_size: int = 224
         num_frames=cfg.num_frames,
         teacher_visual_dim=cfg.teacher.visual_feature_size,
         teacher_num_tokens=cfg.teacher.num_image_with_embedding * 257,
-        teacher_hidden=cfg.teacher.hidden_size)
+        teacher_hidden=cfg.teacher.hidden_size).to(device)
 
 
 @torch.no_grad()

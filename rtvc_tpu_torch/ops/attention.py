@@ -13,14 +13,15 @@ Counterpart of ``rtvc_tpu/ops/attention.py``:
   beside it: TinyViT's window attention with its relative-position bias;
 - :func:`flash_attention` is ``flash_attention`` (the Pallas kernels
   ``_pallas_attention`` and ``_pallas_attention_bwd`` under one
-  ``custom_vjp``) as K4 and K8 in ``csrc/flash_attention.cu``, with
+  ``custom_vjp``) as K4 and K8 in ``csrc/flash_attention.cu`` (K4 for
+  bfloat16 on the tensor cores, ``csrc/flash_attention_sm90.cu``), with
   :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`
   beside them: the GIT teacher's joint prefix-causal attention, with the
   TPU kernel's in-kernel dropout (:func:`dropout_bits`, a counter hash of
   the global (seed, batch, head, row, column), so that the backward
   regenerates the forward's mask bit for bit);
-- :func:`blhd_attention` is ``blhd_attention`` as K5 (the same source, its
-  own entry point), with :func:`blhd_attention_plain`: the CLIP tower's
+- :func:`blhd_attention` is ``blhd_attention`` as K5 (the same sources,
+  its own entry point), with :func:`blhd_attention_plain`: the CLIP tower's
   attention read in place from the QKV GEMM's ``[B, L, H, D]`` view;
 - :func:`multi_head_attention` routes as JAX does: bias-carrying, unmasked
   window attention without dropout to K1, bias-free attention over at
@@ -342,6 +343,34 @@ def _strides(t: torch.Tensor, *dims: int) -> list:
     return [t.stride(d) for d in dims]
 
 
+def _tma_strides(name: str, t: torch.Tensor, *dims: int) -> list:
+    """``t``'s element strides over ``dims`` as the bfloat16 kernel's TMA
+    tensor maps take them: the base 16-byte aligned and every stride a
+    positive multiple of 8 elements (16 bytes), or raise. A dim of size 1
+    is never stepped, so its stride is rounded up to a multiple of 8."""
+    _kernel.require(name, t.data_ptr() % 16 == 0,
+                    "bfloat16 q, k and v must start 16-byte aligned (TMA)")
+    out = []
+    for d in dims:
+        st = t.stride(d)
+        if t.shape[d] == 1:
+            st = -(-max(st, 1) // 8) * 8
+        _kernel.require(name, st > 0 and st % 8 == 0,
+                        f"bfloat16 q, k and v need strides that are positive "
+                        f"multiples of 8 elements (16 bytes, for TMA), got "
+                        f"{tuple(t.stride())}")
+        out.append(st)
+    return out
+
+
+def _qkv_strides(name: str, q, k, v, dims) -> list:
+    """The strides the kernels take for q, k, v over ``dims``: checked and
+    normalised for TMA in bfloat16, as they are in float32."""
+    if q.dtype == torch.bfloat16:
+        return [s for t in (q, k, v) for s in _tma_strides(name, t, *dims)]
+    return [s for t in (q, k, v) for s in _strides(t, *dims)]
+
+
 def _dropout_args(dropout_rate: float, seed: Optional[int]) -> list:
     """(seed, threshold, 1 - rate, on) as the kernels take them."""
     if dropout_rate <= 0.0:
@@ -390,10 +419,10 @@ def _flash_forward(q, k, v, kv_mask, causal: bool, prefix_len: int,
         _kernel.launch("rtvc_flash_attention", q, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), out.data_ptr(),
                        0 if mask is None else mask.data_ptr(), b, h, lq, lkv,
-                       d, *_strides(q, 0, 1, 2), *_strides(k, 0, 1, 2),
-                       *_strides(v, 0, 1, 2), *_strides(out, 0, 1, 2),
-                       float(scale), int(causal), int(prefix_len),
-                       *_dropout_args(dropout_rate, seed), code)
+                       d, *_qkv_strides(name, q, k, v, (0, 1, 2)),
+                       *_strides(out, 0, 1, 2), float(scale), int(causal),
+                       int(prefix_len), *_dropout_args(dropout_rate, seed),
+                       code)
         flash_attention.launches += 1
     return out
 
@@ -479,8 +508,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (any strides with D contiguous, e.g. head views of a packed QKV
     product), ``kv_mask`` ``[B or 1, Lkv]`` bool (True = attend). Returns a
     contiguous ``[B, H, Lq, D]``. CPU tensors take
-    :func:`flash_attention_plain`; CUDA tensors launch K4 (float32 or
-    bfloat16, D ≤ 64) or raise. Differentiable in q, k and v
+    :func:`flash_attention_plain`; CUDA tensors launch K4 (float32 on the
+    CUDA cores, or bfloat16 on the tensor cores with 16-byte aligned
+    strides for TMA; D ≤ 64) or raise. Differentiable in q, k and v
     (:func:`flash_attention_bwd`, K8 on a card).
 
     ``dropout_rate`` > 0 drops probabilities inside the kernel by
@@ -528,7 +558,8 @@ def blhd_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (any strides with D contiguous: the q/k/v column blocks of the QKV
     product need no copy). Returns a contiguous ``[B, L, H, D]``. CPU
     tensors take :func:`blhd_attention_plain`; CUDA tensors launch K5
-    (float32 or bfloat16, D ≤ 64, nothing requiring grad) or raise."""
+    (float32, or bfloat16 with 16-byte aligned strides; D ≤ 64, nothing
+    requiring grad) or raise."""
     name = "blhd_attention"
     b, l, h, d = q.shape
     if scale is None:
@@ -550,8 +581,8 @@ def blhd_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if b and l:
         _kernel.launch("rtvc_blhd_attention", q, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), out.data_ptr(), b, l, h, d,
-                       *_strides(q, 0, 1, 2), *_strides(k, 0, 1, 2),
-                       *_strides(v, 0, 1, 2), float(scale), code)
+                       *_qkv_strides(name, q, k, v, (0, 1, 2)), float(scale),
+                       code)
         blhd_attention.launches += 1
     return out
 
