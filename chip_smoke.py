@@ -9,7 +9,8 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile ``rtvc_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
-   ``build/`` and load it;
+   ``build/`` and load it; count the tensor-core instructions of the bf16
+   K1, K4/K5 and K8 kernels in its SASS;
 3. kernels: K1 (window attention), K2 (LayerNorm) and K3 (int8 GEMV) at
    the caption step's shapes, K2, K4 (flash attention), K5 (BLHD
    attention), K6 (add + LayerNorm) and K7 (W8A8 GEMM) at the teacher's,
@@ -17,7 +18,9 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    (depthwise 3x3 weight gradient) at the train step's, in bfloat16 and
    float32, each held against its plain PyTorch version on the card and
    timed against it and its library yardstick, each as a replayed CUDA
-   graph of back-to-back calls. Then K8's one caller, the gradient
+   graph of back-to-back calls (bf16 K8's yardstick, SDPA's backward, the
+   median of three); and the edge cases of the bf16 tensor-core K1, K4/K5
+   and K8, for correctness only. Then K8's one caller, the gradient
    of ``flash_attention`` through autograd, runs once at the joint shape
    with dropout, launch counts reset before and read after;
 4. slice: the full-width student (random weights from a seeded generator,
@@ -75,6 +78,15 @@ FRAME_HW = (480, 640)
 # float32 result to bfloat16, which can differ by one bf16 ulp (2^-8 of the
 # value) where the float32 results straddle a rounding boundary.
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The bf16 tensor-core K1 and K8 are held closer: each output to this share
+# of its own largest value, with no floor at 1 (K8's gradients lie below
+# 1). K1 at 2^-7, the most one bf16 ulp of the largest value can be: a K1
+# that adds the bias unrounded in the bf16 mode misses by more at each
+# caption-step stage, and a K8 without 1/keep, without Delta or with dP
+# unmasked where dropped misses by more than 2e-2
+# (tests/test_torch_card_limits.py).
+OWN_SCALE_TOL = {("window_attention", "bfloat16"): 2 ** -7,
+                 ("flash_attention_bwd", "bfloat16"): 2e-2}
 # card vs CPU, float32, TF32 off: the full 14-stage encoder and 2-layer
 # decoder (or the depth-cut teacher) with every sum in another order
 SLICE_TOL = 1e-3
@@ -86,7 +98,7 @@ TAPS = (0, 6, 12, 18)          # CLIP blocks tapped for distillation
 BEAM_BATCH, BEAMS, BEAM_STEPS = 2, 4, 15
 
 KERNELS = {
-    "window_attention": ("rtvc_tpu_torch/csrc/window_attention.cu",
+    "window_attention": ("rtvc_tpu_torch/csrc/window_attention_sm90.cu",
                          "rtvc_tpu/ops/attention.py:766"),
     "layer_norm": ("rtvc_tpu_torch/csrc/layer_norm.cu",
                    "rtvc_tpu/ops/layernorm.py:40"),
@@ -100,7 +112,7 @@ KERNELS = {
                              "rtvc_tpu/ops/layernorm.py:159"),
     "w8a8_matmul": ("rtvc_tpu_torch/csrc/w8a8_matmul.cu",
                     "rtvc_tpu/ops/int8_gemm.py:100"),
-    "flash_attention_bwd": ("rtvc_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd": ("rtvc_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
                             "rtvc_tpu/ops/attention.py:452"),
     "dw3x3_wgrad": ("rtvc_tpu_torch/csrc/depthwise_wgrad.cu",
                     "rtvc_tpu/ops/depthwise.py:90"),
@@ -170,11 +182,23 @@ def device_ms(fn, reps: int, warmup: int = 2) -> tuple:
     return start.elapsed_time(end) / reps, "graph"
 
 
+# the tensor-core kernels: family -> (mangled-name pattern, the tensor-core
+# instruction it must hold). A K4/K5 name is the bare "attention_sm90_kernel"
+# after its length prefix; K1's and K8's carry their own words.
+SASS_FAMILIES = {
+    "K4/K5": (r"\dattention_sm90_kernel", "HGMMA"),
+    "K1": (r"window_attention_sm90_kernel", "HMMA"),
+    "K8 dQ": (r"attention_bwd_dq_sm90_kernel", "HGMMA"),
+    "K8 dK/dV": (r"attention_bwd_dkv_sm90_kernel", "HGMMA"),
+}
+
+
 def sm90_sass(library) -> dict:
-    """What the bfloat16 K4/K5 kernels (``attention_sm90_kernel``) were
-    compiled to, from ``cuobjdump`` on the built library: their HGMMA
-    (warpgroup tensor-core product) and ``WARPGROUP.DEPBAR`` (wait for the
-    products) instructions, and registers per thread of each instance. A
+    """What the bf16 tensor-core kernels were compiled to, from
+    ``cuobjdump`` on the built library, per family of SASS_FAMILIES: the
+    HMMA (warp tensor-core product), HGMMA (warpgroup product) and
+    ``WARPGROUP.DEPBAR`` (wait for the products) instructions summed over
+    the family's instances, and each instance's registers per thread. A
     DEPBAR per HGMMA would mean ptxas serialised the products."""
     import re
     from pathlib import Path
@@ -182,25 +206,36 @@ def sm90_sass(library) -> dict:
     tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    out, function = {"HGMMA": 0, "WARPGROUP.DEPBAR": 0}, ""
-    for line in sass.splitlines():
-        if "Function :" in line:
-            function = line
-        elif "attention_sm90" in function:
-            for op in out:
-                out[op] += op in line
     usage = subprocess.run([tool, "-res-usage", str(library)],
                            capture_output=True, text=True, check=True,
                            timeout=300).stdout
-    out["registers"] = [int(m.group(1)) for m in re.finditer(
-        r"attention_sm90\S*\s+REG:(\d+)", usage)]
+    out = {}
+    for family, (pattern, _) in SASS_FAMILIES.items():
+        ops, inside = {"HMMA": 0, "HGMMA": 0, "WARPGROUP.DEPBAR": 0}, False
+        for line in sass.splitlines():
+            if "Function :" in line:
+                inside = re.search(pattern, line) is not None
+            elif inside:
+                for op in ops:
+                    ops[op] += op in line
+        ops["registers"] = [int(m.group(1)) for m in re.finditer(
+            pattern + r"\S*\s+REG:(\d+)", usage)]
+        out[family] = ops
     return out
 
 
-def rel_err(got, want) -> tuple:
-    """(max |got - want|, that divided by max(1, max |want|))."""
+def rel_err(got, want, floor: float = 1.0) -> tuple:
+    """(max |got - want|, that divided by max(floor, max |want|))."""
     err = float((got.float() - want.float()).abs().max())
-    return err, err / max(1.0, float(want.float().abs().max()))
+    return err, err / max(floor, float(want.float().abs().max()))
+
+
+def limit(name: str, dtype: str) -> tuple:
+    """(tolerance, floor of the scale) a kernel's case is held to: TOL of
+    max(1, max|plain|), or OWN_SCALE_TOL of max|plain|."""
+    if (name, dtype) in OWN_SCALE_TOL:
+        return OWN_SCALE_TOL[name, dtype], 1e-30
+    return TOL[dtype], 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -226,11 +261,14 @@ def kernel_cases(dev, g):
     dropout 0.1 at the joint shape, K8 there with and without dropout and
     on the ragged, key-masked case, K9 on the four stride-1 depthwise
     shapes of the batch-8 TinyViT (MBConv at stage 0, local_conv at
-    stages 1-3). In bfloat16, the edges of the tensor-core K4/K5: D = 32
-    and 40 (zero-padded columns), Lq = 1, Lkv below one 64-key tile, Lq
-    and Lkv off the 64/128 grid, a batch row with every key masked, BLHD
-    at L = 50, and the beam's visual prefill [8, 12, 1542, 64] (every key
-    visible)."""
+    stages 1-3). The beam's visual prefill [8, 12, 1542, 64] (every key
+    visible). In bfloat16, the edges (labels with "edge:") of the
+    tensor-core K4/K5: D = 32 and 40 (zero-padded columns), Lq = 1, Lkv
+    below one 64-key tile, Lq and Lkv off the 64/128 grid, a batch row
+    with every key masked, BLHD at L = 50; of the tensor-core K1, in both
+    score modes: 7 windows, N = 16, 64, 100, 196 and 256 and a bias scaled
+    by 8; of the tensor-core K8: D = 32, Lq = 1, Lkv = 37, bidirectional
+    with no mask, a batch row with every key masked."""
     import torch
     from rtvc_tpu_torch import yardsticks as Y
     from rtvc_tpu_torch.ops import attention, depthwise, int8_gemm, layernorm
@@ -281,6 +319,32 @@ def kernel_cases(dev, g):
                     (q, k, v, rand(h, n, n, scale=0.5)),
                     dict(softmax_in_input_dtype=True), Y.window_work,
                     Y.window_library)
+        if dtype == torch.bfloat16:
+            # the tensor-core K1's edges, in both score modes: a window
+            # batch that divides no grid, N = 16 (one 16-key chunk), N = 64
+            # (whole 16-key chunks, no padding), N = 100, 196 and 256 (the
+            # 8-, 13- and 16-chunk instances; N = 100 on 96 windows, where
+            # the native mode copies the bias into shared memory, and on
+            # 24, where it reads it from L2), a bias large enough that one
+            # key takes nearly all of a row
+            for native in (True, False):
+                mode = "native" if native else "f32 scores"
+                for label, b, h, n, bias_scale in (
+                        ("B*nW=7", 7, 6, 49, 0.5), ("N=16", 24, 6, 16, 0.5),
+                        ("N=64", 24, 6, 64, 0.5), ("N=100", 96, 6, 100, 0.5),
+                        ("N=100", 24, 6, 100, 0.5),
+                        ("N=196", 24, 6, 196, 0.5),
+                        ("N=256", 24, 6, 256, 0.5),
+                        ("bias x8", 24, 6, 49, 8.0)):
+                    add("window_attention",
+                        f"{dn} edge: {label} {mode} [{b},{h},{n},32]", 10,
+                        attention.window_attention,
+                        attention.window_attention_plain,
+                        tuple(rand(b, h, n, 32, dtype=dtype)
+                              for _ in range(3))
+                        + (rand(h, n, n, scale=bias_scale),),
+                        dict(softmax_in_input_dtype=native), Y.window_work,
+                        Y.window_library)
         for rows, width in ((8, 576), (8 * 25, 576),
                             (8 * FRAMES * 28 * 28, 192)):
             add("layer_norm", f"{dn} [{rows},{width}]", 50,
@@ -331,6 +395,35 @@ def kernel_cases(dev, g):
                 attention.flash_attention_bwd,
                 attention.flash_attention_bwd_plain, args, kw,
                 Y.flash_bwd_work, Y.flash_bwd_library)
+        if dtype == torch.bfloat16:
+            # the tensor-core K8's edges: D = 32 on packed heads, Lq = 1,
+            # Lkv below one 64-key tile, bidirectional with no mask, and a
+            # batch row whose keys are all masked (the uniform average)
+            fmask = torch.rand(2, 333, generator=g).to(dev) > 0.5
+            fmask[1] = False
+            for label, args, kw in (
+                    ("D=32 [2,4,300,32] prefix 260",
+                     packed_heads(2, 300, 4, 32, dtype)
+                     + (rand(2, 4, 300, 32, dtype=dtype),),
+                     dict(causal=True, prefix_len=260)),
+                    (f"Lq=1 [3,4,1x200,{d}]",
+                     tuple(rand(3, 4, n, d, dtype=dtype)
+                           for n in (1, 200, 200, 1)), {}),
+                    (f"Lkv=37 [2,4,150x37,{d}] prefix 20",
+                     tuple(rand(2, 4, n, d, dtype=dtype)
+                           for n in (150, 37, 37, 150)),
+                     dict(causal=True, prefix_len=20)),
+                    (f"bidirectional [2,3,200x333,{d}]",
+                     tuple(rand(2, 3, n, d, dtype=dtype)
+                           for n in (200, 333, 333, 200)), {}),
+                    (f"fully masked batch row [2,3,200x333,{d}]",
+                     tuple(rand(2, 3, n, d, dtype=dtype)
+                           for n in (200, 333, 333, 200)),
+                     dict(kv_mask=fmask))):
+                add("flash_attention_bwd", f"{dn} edge: {label}", 3,
+                    attention.flash_attention_bwd,
+                    attention.flash_attention_bwd_plain, args, kw,
+                    Y.flash_bwd_work, Y.flash_bwd_library)
         for stage, (c, hw) in enumerate(((384, 56), (192, 28), (384, 14),
                                          (576, 7))):
             add("dw3x3_wgrad",
@@ -370,7 +463,7 @@ def kernel_cases(dev, g):
             blhd(f"{dn} edge: BLHD L=50 [{WINDOWS * FRAMES},50,16,64]",
                  rand(WINDOWS * FRAMES, 50, 3 * 1024, dtype=dtype).view(
                      WINDOWS * FRAMES, 50, 3, 16, 64).unbind(2))
-            flash(f"{dn} edge: beam prefill [{b},{h},{prefix},{d}]",
+            flash(f"{dn} beam prefill [{b},{h},{prefix},{d}]",
                   packed_heads(b, prefix, h, d, dtype),
                   dict(causal=True, prefix_len=prefix))
         rows = WINDOWS * FRAMES * 257
@@ -405,26 +498,34 @@ def kernel_cases(dev, g):
     return cases
 
 
-def library_ms(yardstick, reps: int) -> tuple:
-    """(device ms per call or None, the call's name) of a library
-    yardstick. A call the card's torch refuses (a shape or type it does not
+def library_ms(yardstick, reps: int, samples: int = 1) -> tuple:
+    """(device ms per call or None, the call's name, "graph" or "eager",
+    every timing in ms) of a library yardstick: the median of ``samples``
+    timings. A call the card's torch refuses (a shape or type it does not
     take) is recorded as none, with the reason."""
     if yardstick.fn is None:
-        return None, yardstick.name
+        return None, yardstick.name, None, []
     try:
-        return device_ms(yardstick.fn, reps)[0], yardstick.name
+        runs = [device_ms(yardstick.fn, reps) for _ in range(samples)]
     except (RuntimeError, NotImplementedError) as e:
         reason = str(e).strip().splitlines()[0][:120]
-        return None, f"none: {yardstick.name} raised {reason}"
+        return None, f"none: {yardstick.name} raised {reason}", None, []
+    times = sorted(ms for ms, _ in runs)
+    timing = "/".join(sorted({how for _, how in runs}))
+    return times[len(times) // 2], yardstick.name, timing, [ms for ms, _ in
+                                                            runs]
 
 
 def kernel_phase(dev):
+    """Each case of kernel_cases held against its plain version; every case
+    but the edge cases (correctness only) timed. The phase fails after its
+    last case if any case failed, naming each."""
     import torch
     g = torch.Generator().manual_seed(SEED)
     log(f"  torch.backends.cudnn.allow_tf32 = "
         f"{torch.backends.cudnn.allow_tf32} (K9's float32 yardstick, "
         f"conv2d_weight, runs in TF32 where True)")
-    records = []
+    records, failed = [], []
     for c in kernel_cases(dev, g):
         name, label, reps = c["name"], c["label"], c["reps"]
         got = c["kern"]()
@@ -433,32 +534,52 @@ def kernel_phase(dev):
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [
             (got, want)]
         dtype = str(pairs[0][1].dtype).removeprefix("torch.")
-        errs = [rel_err(a, b) for a, b in pairs]
+        tol, floor = limit(name, dtype)
+        errs = [rel_err(a, b, floor) for a, b in pairs]
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
         finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
         del got, want, pairs
-        ms, timing = device_ms(c["kern"], reps)
-        plain_ms, plain_timing = device_ms(c["plain"], reps)
-        lib_ms, lib_call = library_ms(c["library"](), reps)
-        bound_s, bound_by = c["work"].bound()
-        ok = rel <= TOL[dtype] and finite
-        lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
-        log(f"  {name:20s} {label:52s} max_abs_err {err:.3e} (tol "
-            f"{TOL[dtype]:g} rel) kernel {ms * 1e3:10.2f} us  plain "
-            f"{plain_ms * 1e3:10.2f} us  bound {bound_s * 1e6:.2f} us "
-            f"({bound_by}, {bound_s * 1e3 / ms:.1%})  library {lib}  "
-            f"[{timing}/{plain_timing}] {'ok' if ok else 'FAIL'}")
+        ok = rel <= tol and finite
+        scale = "max(1, max|plain|)" if floor == 1.0 else "max|plain|"
+        line = (f"  {name:20s} {label:52s} max_abs_err {err:.3e} = {rel:.2e}"
+                f" of {scale} (tol {tol:g})")
+        rec = dict(name=name, case=label, max_abs_err=err, rel_err=rel,
+                   tol=tol, tol_of=scale)
+        if "edge:" in label:
+            log(f"{line} correctness only {'ok' if ok else 'FAIL'}")
+        else:
+            ms, timing = device_ms(c["kern"], reps)
+            plain_ms, plain_timing = device_ms(c["plain"], reps)
+            # SDPA's backward, bf16 K8's yardstick, moved between runs
+            # (1541-3226 us at the joint shape): the median of three
+            samples = 3 if (name, dtype) == ("flash_attention_bwd",
+                                             "bfloat16") else 1
+            lib_ms, lib_call, lib_timing, lib_runs = library_ms(
+                c["library"](), reps, samples)
+            bound_s, bound_by = c["work"].bound()
+            lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
+            if len(lib_runs) > 1:
+                lib += " (median of " + ", ".join(
+                    f"{t * 1e3:.2f}" for t in lib_runs) + ")"
+            log(f"{line} kernel {ms * 1e3:10.2f} us  plain "
+                f"{plain_ms * 1e3:10.2f} us  bound {bound_s * 1e6:.2f} us "
+                f"({bound_by}, {bound_s * 1e3 / ms:.1%})  library {lib}  "
+                f"[{timing}/{plain_timing}/{lib_timing or '-'}] "
+                f"{'ok' if ok else 'FAIL'}")
+            rec.update(
+                ms=ms, plain_ms=plain_ms, timing=timing,
+                plain_timing=plain_timing, bound_us=bound_s * 1e6,
+                bound_by=bound_by, roofline_share=bound_s * 1e3 / ms,
+                library_us=None if lib_ms is None else lib_ms * 1e3,
+                library_call=lib_call, library_timing=lib_timing,
+                library_samples_us=[t * 1e3 for t in lib_runs])
+        records.append(rec)
         if not ok:
-            raise AssertionError(f"{name} {label}: kernel disagrees with "
-                                 f"its plain version ({err:.3e})")
-        records.append(dict(
-            name=name, case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            timing=timing, plain_timing=plain_timing,
-            bound_us=bound_s * 1e6, bound_by=bound_by,
-            roofline_share=bound_s * 1e3 / ms,
-            library_us=None if lib_ms is None else lib_ms * 1e3,
-            library_call=lib_call))
+            failed.append(f"{name} {label} ({err:.3e})")
         torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("kernels disagree with their plain versions: "
+                             + "; ".join(failed))
     return records
 
 
@@ -486,12 +607,13 @@ def flash_grad_path(dev) -> dict:
     torch.cuda.synchronize()
     launched = counts()
     want = attention.flash_attention_bwd_plain(q, k, v, go, seed=seed, **kw)
-    err = max(rel_err(t.grad, w)[1] for t, w in zip(leaves, want))
+    tol, floor = limit("flash_attention_bwd", "bfloat16")
+    err = max(rel_err(t.grad, w, floor)[1] for t, w in zip(leaves, want))
     log(f"  flash_attention autograd, dropout 0.1: launches {launched}, "
-        f"grads vs plain {err:.3e} (tol {TOL['bfloat16']:g} rel)")
+        f"grads vs plain {err:.3e} of max|plain| (tol {tol:g})")
     check_launches("flash_attention autograd", launched,
                    {"flash_attention": 1, "flash_attention_bwd": 1})
-    if not err <= TOL["bfloat16"]:
+    if not err <= tol:
         raise AssertionError("flash_attention gradients disagree with "
                              "flash_attention_bwd_plain")
     return launched
@@ -1127,21 +1249,32 @@ def main(argv=None) -> int:
     log(f"[build] {len(_build.sources())} sources -> "
         f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     sass = sm90_sass(_build.library_path())
-    log(f"[build] tensor-core K4/K5 kernels' SASS: {sass['HGMMA']} HGMMA, "
-        f"{sass['WARPGROUP.DEPBAR']} WARPGROUP.DEPBAR, registers "
-        f"{sass['registers']}")
-    if sass["HGMMA"] == 0:
-        raise AssertionError("the bf16 K4/K5 kernels hold no HGMMA")
+    for family, ops in sass.items():
+        log(f"[build] {family} bf16 tensor-core kernels' SASS: "
+            f"{ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA, "
+            f"{ops['WARPGROUP.DEPBAR']} WARPGROUP.DEPBAR, registers "
+            f"{ops['registers']}")
+        op = SASS_FAMILIES[family][1]
+        if ops[op] == 0:
+            raise AssertionError(f"the bf16 {family} kernels hold no {op}")
 
+    t0 = time.perf_counter()
     log("[kernels] kernel vs plain on the card")
     records = kernel_phase(dev)
     grad_path = flash_grad_path(dev)
-    log("[slice] full-width student, caption steps")
+    log(f"[slice] full-width student, caption steps (kernel phase took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     sl = slice_phase(dev)
-    log("[teacher] full-width GIT-Large teacher, bf16")
+    log(f"[teacher] full-width GIT-Large teacher, bf16 (slice phase took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     te = teacher_phase(dev)
-    log("[train] distillation train step, full-width student and teacher")
+    log(f"[train] distillation train step, full-width student and teacher "
+        f"(teacher phase took {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     tr = train_phase(dev)
+    log(f"[train] train phase took {time.perf_counter() - t0:.1f} s")
 
     # the row per kernel: its largest error over all cases; its times at the
     # main path's heaviest bf16 case; its launches on the main paths (K8
@@ -1169,15 +1302,17 @@ def main(argv=None) -> int:
                    bound_by=head["bound_by"],
                    library_ms=None if head["library_us"] is None
                    else head["library_us"] / 1e3,
-                   library_call=head["library_call"], case=head["case"])
+                   library_call=head["library_call"],
+                   library_timing=head["library_timing"], case=head["case"])
         if name == "flash_attention_bwd":
             row.update(launches=grad_path[name],
                        launches_from="flash_attention autograd, kernel phase")
         kernels.append(row)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(device=smi, kernels=kernels, cases=records,
-                           slice=sl, teacher=te, train=tr), f, indent=1)
+            json.dump(dict(device=smi, sass=sass, kernels=kernels,
+                           cases=records, slice=sl, teacher=te, train=tr), f,
+                      indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

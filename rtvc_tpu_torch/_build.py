@@ -34,8 +34,8 @@ _U = ctypes.c_uint
 _DROPOUT = [_U, _U, _F, _I]
 # C entry point -> argument types (every pointer and the stream as void*)
 SIGNATURES = {
-    "rtvc_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _F, _I, _I, _P],
+    "rtvc_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                              _I, _P],
     "rtvc_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rtvc_add_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rtvc_w8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

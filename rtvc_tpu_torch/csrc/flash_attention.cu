@@ -61,7 +61,10 @@
 //      dK += dS^T Q * scale in registers.
 // Bound on an H100: float32 CUDA-core FMAs again, ten 64-deep products per
 // (row, key) against the forward's two; the tiles and the padded
-// conflict-free shared-memory layout are the forward's.
+// conflict-free shared-memory layout are the forward's. These two kernels
+// serve float32 inputs only: the entry point hands bfloat16 calls to the
+// tensor-core kernels of flash_attention_bwd_sm90.cu, which compute the
+// same function.
 
 #include "common.cuh"
 #include "flash_attention_sm90.cuh"
@@ -590,7 +593,9 @@ extern "C" int rtvc_blhd_attention(
 
 // K8: q/k/v/g indexed [b, h, row, d] through element strides (d
 // contiguous); dq [B, H, Lq, D] and dk/dv [B, H, Lkv, D] contiguous in the
-// input dtype; stats a float32 scratch of 3 * B * H * Lq values.
+// input dtype; stats a float32 scratch of 3 * B * H * ceil(Lq / 64) * 64
+// values. bfloat16 calls go to the tensor-core kernels of
+// flash_attention_bwd_sm90.cu, float32 calls to the two kernels above.
 extern "C" int rtvc_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g, void* dq,
     void* dk, void* dv, void* stats, const void* kv_mask, int B, int H,
@@ -600,12 +605,19 @@ extern "C" int rtvc_flash_attention_bwd(
     int causal, int prefix_len, unsigned seed, unsigned thresh, float keep,
     int dropout, int dtype, void* stream) {
   if (rtvc::bad_shape(B, H, D, Lq, Lkv)) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == rtvc::kBFloat16) {
+    const rtvc::Sm90AttentionBwd a{
+        q, k, v, g, dq, dk, dv, static_cast<float*>(stats),
+        static_cast<const uint8_t*>(kv_mask), B, H, Lq, Lkv, D, qb, qh, ql,
+        kb, kh, kl, vb, vh, vl, gb, gh, gl, scale, causal, prefix_len, seed,
+        thresh, keep, dropout};
+    return rtvc::attention_bwd_sm90(a, s);
+  }
   const rtvc::BwdArgs a{q, k, v, g, dq, dk, dv, static_cast<float*>(stats),
                         static_cast<const uint8_t*>(kv_mask), H, Lq, Lkv, D,
                         qb, qh, ql, kb, kh, kl, vb, vh, vl, gb, gh, gl,
                         scale, causal, prefix_len,
                         {seed, thresh, keep, dropout}};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == rtvc::kBFloat16) return rtvc::backward<__nv_bfloat16>(a, B, s);
   return rtvc::backward<float>(a, B, s);
 }

@@ -21,12 +21,17 @@
 // 25 rows; chunks of at most 64 rows give 4x the blocks, at the price of
 // staging each window's K and V once per chunk (from L2).
 //
+// The kernel below serves float32 inputs only: the entry point hands
+// bfloat16 calls (D = 32) to the tensor-core kernel of
+// window_attention_sm90.cu, which computes the same function.
+//
 // Numerics follow the TPU kernel: with scores_in_input_dtype (the TinyViT
 // mode) the scaled score and the bias are rounded to the input dtype and so
 // is their sum; the probabilities are rounded to the value dtype before the
 // P.V product.
 
 #include "common.cuh"
+#include "window_attention_sm90.cuh"
 
 namespace rtvc {
 namespace {
@@ -149,11 +154,16 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The float32 grid: query chunks of at most 64 rows, then windows grouped
+// so that about 16 blocks land on each SM
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* bias,
-           void* out, int B, int H, int N, int D, int windows_per_block,
-           int rows_per_block, float scale, int scores_in_input_dtype,
-           cudaStream_t stream) {
+           void* out, int B, int H, int N, int D, float scale,
+           int scores_in_input_dtype, cudaStream_t stream) {
+  const int chunks = (N + 63) / 64;
+  const int rows_per_block = (N + chunks - 1) / chunks;
+  const int windows_per_block = max(
+      1, (int)((long long)B * H * chunks / (16 * device_sm_count())));
   const size_t smem = (size_t)(N * (D + 1) + N * D + kWarps * D) *
                       sizeof(float);
   cudaFuncSetAttribute(window_attention_kernel<T>,
@@ -175,20 +185,18 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 extern "C" int rtvc_window_attention(const void* q, const void* k,
                                      const void* v, const void* bias,
                                      void* out, int B, int H, int N, int D,
-                                     int windows_per_block,
-                                     int rows_per_block, float scale,
-                                     int scores_in_input_dtype, int dtype,
-                                     void* stream) {
-  if (N > rtvc::kMaxKeys || D > rtvc::kMaxHeadDim || rows_per_block < 1) {
+                                     float scale, int scores_in_input_dtype,
+                                     int dtype, void* stream) {
+  if (N < 1 || N > rtvc::kMaxKeys || D > rtvc::kMaxHeadDim) {
     return (int)cudaErrorInvalidValue;
   }
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == rtvc::kBFloat16) {
-    return rtvc::launch<__nv_bfloat16>(q, k, v, bias, out, B, H, N, D,
-                                       windows_per_block, rows_per_block,
+    // the tensor-core kernel, on its own persistent grid
+    if (D != 32) return (int)cudaErrorInvalidValue;
+    return rtvc::window_attention_sm90(q, k, v, bias, out, B, H, N,
                                        scale, scores_in_input_dtype, s);
   }
-  return rtvc::launch<float>(q, k, v, bias, out, B, H, N, D,
-                             windows_per_block, rows_per_block, scale,
+  return rtvc::launch<float>(q, k, v, bias, out, B, H, N, D, scale,
                              scores_in_input_dtype, s);
 }

@@ -9,12 +9,14 @@ Counterpart of ``rtvc_tpu/ops/attention.py``:
 - :func:`window_attention` is ``window_attention`` (the Pallas kernel
   ``_window_attention_fwd_pallas`` and its closed-form backward
   ``_window_attention_bwd``) as the CUDA kernel ``csrc/window_attention.cu``
-  and :func:`window_attention_bwd_plain`, with :func:`window_attention_plain`
+  (bfloat16 on the tensor cores, ``csrc/window_attention_sm90.cu``) and
+  :func:`window_attention_bwd_plain`, with :func:`window_attention_plain`
   beside it: TinyViT's window attention with its relative-position bias;
 - :func:`flash_attention` is ``flash_attention`` (the Pallas kernels
   ``_pallas_attention`` and ``_pallas_attention_bwd`` under one
-  ``custom_vjp``) as K4 and K8 in ``csrc/flash_attention.cu`` (K4 for
-  bfloat16 on the tensor cores, ``csrc/flash_attention_sm90.cu``), with
+  ``custom_vjp``) as K4 and K8 in ``csrc/flash_attention.cu`` (for
+  bfloat16 on the tensor cores, ``csrc/flash_attention_sm90.cu`` and
+  ``csrc/flash_attention_bwd_sm90.cu``), with
   :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`
   beside them: the GIT teacher's joint prefix-causal attention, with the
   TPU kernel's in-kernel dropout (:func:`dropout_bits`, a counter hash of
@@ -146,14 +148,6 @@ def window_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv.to(v.dtype), dbias
 
 
-def _grid(b: int, h: int, n: int, device) -> tuple:
-    """(windows per block, query rows per block): query chunks of at most
-    64 rows, then windows grouped so that about 16 blocks land on each SM."""
-    chunks = -(-n // 64)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, (b * h * chunks) // (16 * sms)), -(-n // chunks)
-
-
 def _window_forward(q, k, v, bias, scale: float, native: bool):
     """The plain version for CPU tensors, K1 for CUDA tensors."""
     if q.device.type == "cpu":
@@ -172,11 +166,16 @@ def _window_forward(q, k, v, bias, scale: float, native: bool):
                     f"takes N <= 256 and D <= 64, got N={n}, D={d}")
     code = _kernel.dtype_code(name, q)
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel copies 16-byte pieces of 64-byte rows
+        _kernel.require(name, d == 32, f"bfloat16 takes D = 32, got {d}")
+        _kernel.require(name, all(t.data_ptr() % 16 == 0
+                                  for t in (q, k, v, out)),
+                        "bfloat16 q, k, v must start 16-byte aligned")
     if b:
         _kernel.launch("rtvc_window_attention", q, q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                       out.data_ptr(), b, h, n, d,
-                       *_grid(b, h, n, q.device), float(scale),
+                       out.data_ptr(), b, h, n, d, float(scale),
                        int(native), code)
         window_attention.launches += 1
     return out
@@ -205,7 +204,8 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q kᵀ·scale + bias[h]) v per window. q/k/v ``[B·nW, H, N, D]``,
     bias ``[H, N, N]`` float32. CPU tensors take
     :func:`window_attention_plain`; CUDA tensors launch K1 (contiguous,
-    float32 or bfloat16, N ≤ 256, D ≤ 64) or raise. Differentiable in q,
+    float32 with D ≤ 64, or bfloat16 with D = 32 on the tensor cores;
+    N ≤ 256) or raise. Differentiable in q,
     k, v and bias (:func:`window_attention_bwd_plain`)."""
     b, h, n, d = q.shape
     _kernel.require("window_attention", bias.shape == (h, n, n),
@@ -436,8 +436,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         seed: Optional[int] = None):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
     ``g [B, H, Lq, D]``, in the input dtype. CPU tensors take
-    :func:`flash_attention_bwd_plain`; CUDA tensors launch K8 (float32 or
-    bfloat16, D ≤ 64, D contiguous) or raise."""
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch K8 (float32 on
+    the CUDA cores, or bfloat16 on the tensor cores with 16-byte aligned
+    strides for TMA; D ≤ 64, D contiguous) or raise."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -454,18 +455,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = _kernel.dtype_code(name, q)
     dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
                   for n in (lq, lkv, lkv))
-    # per query row: max, softmax normaliser and rowsum(P∘dP), float32
-    stats = torch.empty((3, b * h * lq), dtype=torch.float32,
+    # per query row: max, softmax normaliser and rowsum(P∘dP), float32,
+    # for every row of the 64-row tiles (the bfloat16 kernels' layout)
+    stats = torch.empty(3 * b * h * -(-lq // 64) * 64, dtype=torch.float32,
                         device=q.device)
+    if q.dtype == torch.bfloat16:
+        strides = [s for t in (q, k, v, g)
+                   for s in _tma_strides(name, t, 0, 1, 2)]
+    else:
+        strides = [s for t in (q, k, v, g) for s in _strides(t, 0, 1, 2)]
     if b and lq:
         _kernel.launch("rtvc_flash_attention_bwd", q, q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), g.data_ptr(),
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                        stats.data_ptr(),
                        0 if mask is None else mask.data_ptr(), b, h, lq, lkv,
-                       d, *_strides(q, 0, 1, 2), *_strides(k, 0, 1, 2),
-                       *_strides(v, 0, 1, 2), *_strides(g, 0, 1, 2),
-                       float(scale), int(causal), int(prefix_len),
+                       d, *strides, float(scale), int(causal), int(prefix_len),
                        *_dropout_args(dropout_rate, seed), code)
         flash_attention_bwd.launches += 1
     else:

@@ -1,4 +1,5 @@
-"""Where the teacher's device time goes, on a CUDA card.
+"""Where the teacher's device time goes, on a CUDA card, and the student
+encoder's beside it.
 
     python -m rtvc_tpu_torch.profile_teacher [--top 22]
 
@@ -8,7 +9,10 @@ forward at batch 8 (40 caption tokens, taps at blocks 0, 6, 12, 18), the
 same on its W8A8 copy and ``teacher_beam`` at batch 2: the device time by
 op from one ``torch.profiler`` pass, the attention kernels' (K4, K5) share
 of it, then the CUDA-event ms of 3 calls and the device's busy share of
-them. Each kernel's library yardstick is timed by ``chip_smoke.py``.
+them. Last the same for the full-width bf16 student's image encoder
+(TinyViT-21M, the caption step's encode part) at batch 8, whose attention
+kernel is K1. Each kernel's library yardstick is timed by
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import torch
 from .config import cfg
 from .decode import teacher_beam
 from .models.git_teacher import random_init_, teacher_from_config
+from .models.student import random_init_ as student_random_init_
+from .models.student import student_from_config
 from .ops.preprocess import clip_preprocess
 from .ops.quantization import quantize_teacher_
 
@@ -47,7 +53,7 @@ def profile_run(label: str, fn, top: int) -> None:
         attn = sum(e.self_device_time_total for e in kernels
                    if "attention" in e.key) / 1e3
         print(f"=== {label}: device busy {busy:.3f} ms over {n} kernels; "
-              f"attention kernels (K4, K5) {attn:.3f} ms = "
+              f"attention kernels {attn:.3f} ms = "
               f"{attn / busy:.1%} of it")
         for e in sorted(kernels,
                         key=lambda e: -e.self_device_time_total)[:top]:
@@ -90,6 +96,11 @@ def main(argv=None) -> int:
         frames, captions, TAPS), args.top)
     profile_run("teacher_beam b2 x 4 beams", lambda: teacher_beam(
         teacher, frames[:2]), args.top)
+    del teacher, quant
+    student = student_random_init_(student_from_config(cfg, device=dev),
+                                   g).to(cfg.dtype).eval()
+    profile_run("student encode b8 (K1)",
+                lambda: student.forward_image_enc(frames), args.top)
     return 0
 
 

@@ -1,0 +1,106 @@
+"""The limits ``chip_smoke.py`` holds the bf16 tensor-core K1 and K8 to on
+the card, against kernels with one known fault, on the CPU: a limit that a
+faulty kernel passes checks nothing.
+
+Each fault is written as the plain version with one step changed, run on
+inputs from a numpy seed at the shapes the card checks use (K1 at the six
+caption-step stages; K8 with the joint head dim and dropout 0.1, cut in
+length), and must miss the plain version by more than the card's limit.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from rtvc_tpu_torch.ops import attention
+
+ROOT = Path(__file__).resolve().parent.parent
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+# [B·nW, H, N] of K1 per TinyViT stage at batch 1 and 8 (6-frame windows)
+K1_STAGES = [(96, 6, 49), (6, 12, 196), (6, 18, 49),
+             (768, 6, 49), (48, 12, 196), (48, 18, 49)]
+
+
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        torch.bfloat16)
+
+
+def _k1_unrounded_bias(q, k, v, bias):
+    """K1's bf16 mode with the bias added to the bf16 score unrounded."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = ((s * q.shape[-1] ** -0.5).to(q.dtype).float() + bias).to(q.dtype)
+    p = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,h,n", K1_STAGES,
+                         ids=[f"{b}x{h}x{n}" for b, h, n in K1_STAGES])
+def test_k1_card_limit_rejects_an_unrounded_bias(b, h, n):
+    rng = np.random.default_rng(b * n)
+    q, k, v = (_bf16(rng, b, h, n, 32) for _ in range(3))
+    bias = torch.from_numpy(0.5 * rng.normal(size=(h, n, n)).astype(
+        np.float32))
+    want = attention.window_attention_plain(q, k, v, bias,
+                                            softmax_in_input_dtype=True)
+    tol, floor = chip_smoke.limit("window_attention", "bfloat16")
+    _, rel = chip_smoke.rel_err(_k1_unrounded_bias(q, k, v, bias), want,
+                                floor)
+    assert rel > tol, f"the unrounded bias misses by {rel:.3e} <= {tol:g}"
+
+
+RATE = 0.1
+
+
+def _k8_faulty(fault, q, k, v, g, **kw):
+    """(dq, dk, dv) of flash_attention_bwd_plain with one step changed."""
+    scale = q.shape[-1] ** -0.5
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
+    p, p_used = attention._flash_probs(q32, k32, kw["causal"],
+                                       kw["prefix_len"], None, scale, RATE,
+                                       kw["seed"])
+    kept = p_used > 0.0
+    keep = 1.0 if fault == "no 1/keep" else 1.0 - RATE
+    dv = torch.matmul(torch.where(kept, p / keep, 0.0).transpose(-1, -2),
+                      g32)
+    dp = torch.matmul(g32, v32.transpose(-1, -2)) / keep
+    if fault != "unmasked dP":
+        dp = torch.where(kept, dp, 0.0)
+    delta = 0.0 if fault == "no delta" else (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, k32) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+K8_KW = dict(causal=True, prefix_len=260, seed=12345)
+
+
+def _k8_case():
+    """(q, k, v, g) [2, 3, 300, 64] bf16 and their plain gradients."""
+    rng = np.random.default_rng(7)
+    args = tuple(_bf16(rng, 2, 3, 300, 64) for _ in range(4))
+    return args, attention.flash_attention_bwd_plain(
+        *args, dropout_rate=RATE, **K8_KW)
+
+
+@pytest.mark.parametrize("fault", ["no 1/keep", "no delta", "unmasked dP"])
+def test_k8_card_limit_rejects_a_faulty_backward(fault):
+    args, want = _k8_case()
+    tol, floor = chip_smoke.limit("flash_attention_bwd", "bfloat16")
+    rel = max(chip_smoke.rel_err(a, b, floor)[1]
+              for a, b in zip(_k8_faulty(fault, *args, **K8_KW), want))
+    assert rel > tol, f"{fault}: misses by {rel:.3e} <= {tol:g}"
+
+
+def test_k8_fault_model_is_the_plain_version_without_a_fault():
+    args, want = _k8_case()
+    for a, b in zip(_k8_faulty(None, *args, **K8_KW), want):
+        torch.testing.assert_close(a.float(), b.float(), atol=0, rtol=0)

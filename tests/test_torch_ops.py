@@ -56,20 +56,44 @@ def _window_inputs(n: int, seed: int = 0, b: int = 6, h: int = 2,
     return q, k, v, bias
 
 
-@pytest.mark.parametrize("native", [False, True])
-@pytest.mark.parametrize("n", [49, 16])
-def test_window_attention_matches_jax(n, native):
-    q, k, v, bias = _window_inputs(n)
+def _bf16_tol(want: np.ndarray) -> float:
+    """One bf16 ulp of the largest value: a score or a sum may round to the
+    neighbouring bf16 value where the two float32 results, summed in other
+    orders, straddle a rounding boundary."""
+    return 2e-2 * max(1.0, float(np.abs(want).max()))
+
+
+# (N, native, dtype): the caption step's windows (7 x 7 and stage 2's
+# 14 x 14, at a small batch and head count), float32 and the bfloat16
+# TinyViT path (native) that the tensor-core K1 serves
+WINDOW_CASES = [(49, False, "float32"), (49, True, "float32"),
+                (16, False, "float32"), (16, True, "float32"),
+                (196, False, "float32"), (196, True, "float32"),
+                (49, True, "bfloat16"), (196, True, "bfloat16")]
+
+
+@pytest.mark.parametrize(
+    "n,native,dtype", WINDOW_CASES,
+    ids=[f"{n}-{native}" + ("" if dt == "float32" else f"-{dt}")
+         for n, native, dt in WINDOW_CASES])
+def test_window_attention_matches_jax(n, native, dtype):
+    q, k, v, bias = _window_inputs(n, **({} if n < 100 else dict(b=2)))
     d = q.shape[-1]
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
     with jax.default_matmul_precision("highest"):
         want = jattention.window_attention(
-            *map(jnp.asarray, (q, k, v, bias)), scale=d ** -0.5,
+            jq, jk, jv, jnp.asarray(bias), scale=d ** -0.5,
             softmax_in_input_dtype=native, interpret=True)
-    got = attention.window_attention(*map(_t, (q, k, v, bias)),
-                                     scale=d ** -0.5,
+    tq, tk, tv = (_t(a).to(getattr(torch, dtype)) for a in (q, k, v))
+    got = attention.window_attention(tq, tk, tv, _t(bias), scale=d ** -0.5,
                                      softmax_in_input_dtype=native)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
-                               rtol=1e-5)
+    assert got.dtype == getattr(torch, dtype)
+    want = np.asarray(want).astype(np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   atol=_bf16_tol(want), rtol=0)
 
 
 def test_multi_head_attention_routes_window_bias_to_k1():
@@ -477,10 +501,18 @@ def test_flash_attention_dropout_matches_pallas(case, causal, prefix, lq,
     assert not torch.allclose(got, nodrop)
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("case,causal,prefix,lq,masked", FLASH_DROPOUT_CASES)
+# every case with and without dropout in float32; the same in bfloat16,
+# the dtype the tensor-core K8 serves
+FLASH_BWD_CASES = [c + (rate, dtype) for dtype in ("float32", "bfloat16")
+                   for c in FLASH_DROPOUT_CASES for rate in (0.0, 0.1)]
+
+
+@pytest.mark.parametrize(
+    "case,causal,prefix,lq,masked,rate,dtype", FLASH_BWD_CASES,
+    ids=["-".join(map(str, c[:6])) + ("" if c[6] == "float32" else
+                                      f"-{c[6]}") for c in FLASH_BWD_CASES])
 def test_flash_attention_bwd_matches_pallas(case, causal, prefix, lq, masked,
-                                            rate):
+                                            rate, dtype):
     """K8's plain version against ``_pallas_attention_bwd`` in interpret
     mode (with a row that has no allowed key where masked), and autograd
     through the port's ``flash_attention`` on the CPU gives the same
@@ -488,23 +520,31 @@ def test_flash_attention_bwd_matches_pallas(case, causal, prefix, lq, masked,
     q, k, v, g, kv_mask, kw = _flash_case(causal, prefix, lq, masked)
     with jax.default_matmul_precision("highest"):
         want = jattention._pallas_attention_bwd(
-            *map(jnp.asarray, (q, k, v)), _j(kv_mask), jnp.asarray(g),
-            dropout_rate=rate, seed=jnp.int32(SEED) if rate else None,
-            interpret=True, **kw)
+            *(jnp.asarray(a).astype(dtype) for a in (q, k, v)), _j(kv_mask),
+            jnp.asarray(g).astype(dtype), dropout_rate=rate,
+            seed=jnp.int32(SEED) if rate else None, interpret=True, **kw)
     seed = SEED if rate else None
+    tq, tk, tv, tg = (_t(a).to(getattr(torch, dtype)) for a in (q, k, v, g))
     got = attention.flash_attention_bwd_plain(
-        *map(_t, (q, k, v, g)), kv_mask=_tt(kv_mask), dropout_rate=rate,
-        seed=seed, **kw)
-    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+        tq, tk, tv, tg, kv_mask=_tt(kv_mask), dropout_rate=rate, seed=seed,
+        **kw)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     attention.flash_attention(*leaves, kv_mask=_tt(kv_mask),
                               dropout_rate=rate, seed=seed,
-                              **kw).backward(_t(g))
+                              **kw).backward(tg)
     for name, p, a, w in zip("qkv", got, leaves, want):
-        w = np.asarray(w)
-        assert np.isfinite(p.numpy()).all()
-        np.testing.assert_allclose(p.numpy(), w, atol=1e-5, rtol=1e-5,
-                                   err_msg=f"d{name}")
-        np.testing.assert_array_equal(a.grad.numpy(), p.numpy())
+        w = np.asarray(w).astype(np.float32)
+        assert p.dtype == getattr(torch, dtype)
+        assert np.isfinite(p.float().numpy()).all()
+        if dtype == "float32":
+            np.testing.assert_allclose(p.numpy(), w, atol=1e-5, rtol=1e-5,
+                                       err_msg=f"d{name}")
+        else:
+            np.testing.assert_allclose(p.float().numpy(), w,
+                                       atol=_bf16_tol(w), rtol=0,
+                                       err_msg=f"d{name}")
+        np.testing.assert_array_equal(a.grad.float().numpy(),
+                                      p.float().numpy())
 
 
 @pytest.mark.parametrize("native", [False, True])
