@@ -10,17 +10,19 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile ``rtvc_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``build/`` and load it; count the tensor-core instructions of the bf16
-   K1, K4/K5 and K8 kernels in its SASS;
+   K1, K4/K5 and K8 kernels and the int8 K7 in its SASS (a wait after
+   every warpgroup product fails);
 3. kernels: K1 (window attention), K2 (LayerNorm) and K3 (int8 GEMV) at
    the caption step's shapes, K2, K4 (flash attention), K5 (BLHD
-   attention), K6 (add + LayerNorm) and K7 (W8A8 GEMM) at the teacher's,
-   K4 with dropout, K8 (flash backward, with and without dropout) and K9
-   (depthwise 3x3 weight gradient) at the train step's, in bfloat16 and
-   float32, each held against its plain PyTorch version on the card and
-   timed against it and its library yardstick, each as a replayed CUDA
-   graph of back-to-back calls (bf16 K8's yardstick, SDPA's backward, the
-   median of three); and the edge cases of the bf16 tensor-core K1, K4/K5
-   and K8, for correctness only. Then K8's one caller, the gradient
+   attention), K6 (add + LayerNorm) and K7 (W8A8 GEMM, bit for bit) at
+   the teacher's, K4 with dropout, K8 (flash backward, with and without
+   dropout) and K9 (depthwise 3x3 weight gradient, run twice for the same
+   bits) at the train step's, in bfloat16 and float32, each held against
+   its plain PyTorch version on the card and timed against it and its
+   library yardstick, each as a replayed CUDA graph of back-to-back calls
+   (bf16 K8's yardstick, SDPA's backward, the median of three); and the
+   edge cases of K7, K9 and the bf16 tensor-core K1, K4/K5 and K8, for
+   correctness only. Then K8's one caller, the gradient
    of ``flash_attention`` through autograd, runs once at the joint shape
    with dropout, launch counts reset before and read after;
 4. slice: the full-width student (random weights from a seeded generator,
@@ -84,9 +86,17 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # that adds the bias unrounded in the bf16 mode misses by more at each
 # caption-step stage, and a K8 without 1/keep, without Delta or with dP
 # unmasked where dropped misses by more than 2e-2
-# (tests/test_torch_card_limits.py).
+# (tests/test_torch_card_limits.py). K7 is held to 0 in both dtypes: its
+# integer sums are exact and its float32 epilogue rounds in the plain
+# version's order, so a fused multiply-add or a bias added before sw shows
+# as an error above 0 (tests/test_torch_card_limits.py).
 OWN_SCALE_TOL = {("window_attention", "bfloat16"): 2 ** -7,
-                 ("flash_attention_bwd", "bfloat16"): 2e-2}
+                 ("flash_attention_bwd", "bfloat16"): 2e-2,
+                 ("w8a8_matmul", "float32"): 0.0,
+                 ("w8a8_matmul", "bfloat16"): 0.0}
+# the kernels that must give the same bits on every run: each of their
+# cases runs twice
+DETERMINISTIC = ("dw3x3_wgrad",)
 # card vs CPU, float32, TF32 off: the full 14-stage encoder and 2-layer
 # decoder (or the depth-cut teacher) with every sum in another order
 SLICE_TOL = 1e-3
@@ -110,7 +120,7 @@ KERNELS = {
                        "rtvc_tpu/ops/attention.py:642"),
     "fused_add_layer_norm": ("rtvc_tpu_torch/csrc/layer_norm.cu",
                              "rtvc_tpu/ops/layernorm.py:159"),
-    "w8a8_matmul": ("rtvc_tpu_torch/csrc/w8a8_matmul.cu",
+    "w8a8_matmul": ("rtvc_tpu_torch/csrc/w8a8_matmul_sm90.cu",
                     "rtvc_tpu/ops/int8_gemm.py:100"),
     "flash_attention_bwd": ("rtvc_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
                             "rtvc_tpu/ops/attention.py:452"),
@@ -184,22 +194,25 @@ def device_ms(fn, reps: int, warmup: int = 2) -> tuple:
 
 # the tensor-core kernels: family -> (mangled-name pattern, the tensor-core
 # instruction it must hold). A K4/K5 name is the bare "attention_sm90_kernel"
-# after its length prefix; K1's and K8's carry their own words.
+# after its length prefix; K1's, K7's and K8's carry their own words.
 SASS_FAMILIES = {
     "K4/K5": (r"\dattention_sm90_kernel", "HGMMA"),
     "K1": (r"window_attention_sm90_kernel", "HMMA"),
     "K8 dQ": (r"attention_bwd_dq_sm90_kernel", "HGMMA"),
     "K8 dK/dV": (r"attention_bwd_dkv_sm90_kernel", "HGMMA"),
+    "K7": (r"w8a8_sm90_kernel", "IGMMA"),
 }
+SASS_OPS = ("HMMA", "HGMMA", "IGMMA", "WARPGROUP.DEPBAR")
 
 
 def sm90_sass(library) -> dict:
-    """What the bf16 tensor-core kernels were compiled to, from
-    ``cuobjdump`` on the built library, per family of SASS_FAMILIES: the
-    HMMA (warp tensor-core product), HGMMA (warpgroup product) and
-    ``WARPGROUP.DEPBAR`` (wait for the products) instructions summed over
-    the family's instances, and each instance's registers per thread. A
-    DEPBAR per HGMMA would mean ptxas serialised the products."""
+    """What the tensor-core kernels were compiled to, from ``cuobjdump`` on
+    the built library, per family of SASS_FAMILIES: the HMMA (warp
+    tensor-core product), HGMMA and IGMMA (bf16 and int8 warpgroup
+    products) and ``WARPGROUP.DEPBAR`` (wait for the products) instructions
+    summed over the family's instances, and each instance's registers per
+    thread. A DEPBAR per warpgroup product would mean ptxas serialised the
+    products."""
     import re
     from pathlib import Path
     from rtvc_tpu_torch import _build
@@ -211,7 +224,7 @@ def sm90_sass(library) -> dict:
                            timeout=300).stdout
     out = {}
     for family, (pattern, _) in SASS_FAMILIES.items():
-        ops, inside = {"HMMA": 0, "HGMMA": 0, "WARPGROUP.DEPBAR": 0}, False
+        ops, inside = dict.fromkeys(SASS_OPS, 0), False
         for line in sass.splitlines():
             if "Function :" in line:
                 inside = re.search(pattern, line) is not None
@@ -254,7 +267,7 @@ def kernel_cases(dev, g):
     ragged and a key-masked case (one row with no key left), the CLIP
     attention of 48 frames, the CLIP norms over 48 × 257 tokens at eps
     1e-5 and the joint norms over 8 × 1582 tokens at eps 1e-12, the ln_2
-    add + norm, and the W8A8 GEMMs of a CLIP MLP (both Linears) at
+    add + norm, and the W8A8 GEMMs of CLIP's qkv and MLP Linears at
     M = 12336, of the joint fc2 at M = 12656 (K up to 4096, where the
     int32 sums pass 2^24) and of the vocab projection at the
     teacher-forced M = 320 and a beam's M = 8. The train step's: K4 with
@@ -262,7 +275,8 @@ def kernel_cases(dev, g):
     on the ragged, key-masked case, K9 on the four stride-1 depthwise
     shapes of the batch-8 TinyViT (MBConv at stage 0, local_conv at
     stages 1-3). The beam's visual prefill [8, 12, 1542, 64] (every key
-    visible). In bfloat16, the edges (labels with "edge:") of the
+    visible). In both dtypes, the edges (labels with "edge:") of K7 and
+    K9 (listed where they are made). In bfloat16, the edges of the
     tensor-core K4/K5: D = 32 and 40 (zero-padded columns), Lq = 1, Lkv
     below one 64-key tile, Lq and Lkv off the 64/128 grid, a batch row
     with every key masked, BLHD at L = 50; of the tensor-core K1, in both
@@ -424,14 +438,22 @@ def kernel_cases(dev, g):
                     attention.flash_attention_bwd,
                     attention.flash_attention_bwd_plain, args, kw,
                     Y.flash_bwd_work, Y.flash_bwd_library)
-        for stage, (c, hw) in enumerate(((384, 56), (192, 28), (384, 14),
-                                         (576, 7))):
-            add("dw3x3_wgrad",
-                f"{dn} stage{stage} [{WINDOWS * FRAMES},{c},{hw},{hw}]", 20,
-                depthwise.dw3x3_wgrad, depthwise.dw3x3_wgrad_plain,
-                tuple(rand(WINDOWS * FRAMES, c, hw, hw, dtype=dtype)
-                      for _ in range(2)), {}, Y.dw3x3_wgrad_work,
-                Y.dw3x3_wgrad_library)
+        # K9 at the train step's four shapes, then at its edges
+        # (correctness only): one image, a channel count no group size
+        # divides, 1 x 1 and 5 x 9 planes
+        for label, shape in (
+                ("stage0", (WINDOWS * FRAMES, 384, 56, 56)),
+                ("stage1", (WINDOWS * FRAMES, 192, 28, 28)),
+                ("stage2", (WINDOWS * FRAMES, 384, 14, 14)),
+                ("stage3", (WINDOWS * FRAMES, 576, 7, 7)),
+                ("edge: one image", (1, 384, 14, 14)),
+                ("edge: C=3", (8, 3, 28, 28)),
+                ("edge: 1x1 planes", (8, 64, 1, 1)),
+                ("edge: 5x9 planes", (4, 40, 5, 9))):
+            add("dw3x3_wgrad", f"{dn} {label} [{','.join(map(str, shape))}]",
+                20, depthwise.dw3x3_wgrad, depthwise.dw3x3_wgrad_plain,
+                tuple(rand(*shape, dtype=dtype) for _ in range(2)), {},
+                Y.dw3x3_wgrad_work, Y.dw3x3_wgrad_library)
         clip_qkv = rand(WINDOWS * FRAMES, 257, 3 * 1024, dtype=dtype)
         blhd(f"{dn} clip [{WINDOWS * FRAMES},257,16,64]",
              clip_qkv.view(WINDOWS * FRAMES, 257, 3, 16, 64).unbind(2))
@@ -483,17 +505,31 @@ def kernel_cases(dev, g):
             tuple(rand(rows, 1024, dtype=dtype, scale=2.0) for _ in range(2))
             + (rand(1024, dtype=dtype), rand(1024, dtype=dtype)), {},
             Y.add_layer_norm_work, Y.add_layer_norm_library)
-        for label, m, k, n in (("clip fc", rows, 1024, 3072),
-                               ("clip c_proj", rows, 4096, 1024),
-                               ("joint fc2", joint_rows, 3072, 768),
-                               ("vocab", WINDOWS * CAPTION_LEN, 768, 30522),
-                               ("vocab", WINDOWS, 768, 30522)):
+        # K7 at the teacher's sites, then at its edges (correctness only):
+        # one row, rows past one 64-row warpgroup, K below and off the
+        # 128-byte stage, an odd N, the vocab's ragged N at a beam's rows,
+        # no bias
+        for label, m, k, n, bias in (
+                ("clip qkv", rows, 1024, 3072, True),
+                ("clip c_fc", rows, 1024, 4096, True),
+                ("clip c_proj", rows, 4096, 1024, True),
+                ("joint fc2", joint_rows, 3072, 768, True),
+                ("vocab", WINDOWS * CAPTION_LEN, 768, 30522, True),
+                ("vocab", WINDOWS, 768, 30522, True),
+                ("edge: one row", 1, 1024, 3072, True),
+                ("edge: rows past a warpgroup", 65, 1024, 3072, True),
+                ("edge: K below a stage", 300, 16, 520, True),
+                ("edge: K off the stage", 300, 144, 520, True),
+                ("edge: odd N", 65, 144, 257, True),
+                ("edge: vocab N at a beam's rows", 8, 144, 30522, True),
+                ("edge: no bias", 1000, 1024, 3072, False)):
             xq, pack = int8(m, k), int8(n, k)
             sx = torch.rand(m, generator=g).to(dev) * 0.02 + 1e-3
             swn = torch.rand(n, generator=g).to(dev) * 1e-3 + 1e-4
             add("w8a8_matmul", f"{dn} {label} M={m} [{k}->{n}]", 10,
                 int8_gemm.w8a8_matmul, int8_gemm.w8a8_matmul_plain,
-                (xq, sx, pack.t(), swn, rand(n, scale=0.1), dtype), {},
+                (xq, sx, pack.t(), swn,
+                 rand(n, scale=0.1) if bias else None, dtype), {},
                 Y.w8a8_work, Y.w8a8_library)
     return cases
 
@@ -538,13 +574,18 @@ def kernel_phase(dev):
         errs = [rel_err(a, b, floor) for a, b in pairs]
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
         finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
-        del got, want, pairs
         ok = rel <= tol and finite
         scale = "max(1, max|plain|)" if floor == 1.0 else "max|plain|"
         line = (f"  {name:20s} {label:52s} max_abs_err {err:.3e} = {rel:.2e}"
                 f" of {scale} (tol {tol:g})")
         rec = dict(name=name, case=label, max_abs_err=err, rel_err=rel,
                    tol=tol, tol_of=scale)
+        if name in DETERMINISTIC:
+            same = torch.equal(got, c["kern"]())
+            line += f" second run {'bitwise equal' if same else 'DIFFERS'}"
+            rec.update(bitwise_repeat=same)
+            ok = ok and same
+        del got, want, pairs
         if "edge:" in label:
             log(f"{line} correctness only {'ok' if ok else 'FAIL'}")
         else:
@@ -901,7 +942,7 @@ def teacher_f32_check(frames, captions, dev) -> dict:
 def w8a8_sites_check(model, frames, captions) -> dict:
     """One more W8A8 forward, each ``QuantLinear``'s output (a K7 launch at
     the main path's shape) held against the plain version on the same
-    input on the card, with the TOL rule."""
+    input on the card, to K7's limit: bit for bit."""
     import torch
     from rtvc_tpu_torch.ops.int8_gemm import w8a8_matmul_plain
     from rtvc_tpu_torch.ops.quantization import (QuantLinear,
@@ -927,7 +968,7 @@ def w8a8_sites_check(model, frames, captions) -> dict:
         for h in hooks:
             h.remove()
     for site, (rel, err) in sorted(worst.items()):
-        tol = TOL[site.split()[0]]
+        tol = limit("w8a8_matmul", site.split()[0])[0]
         log(f"  w8a8 site {site:33s} max_abs_err {err:.3e} (rel {rel:.3e}, "
             f"tol {tol:g})")
         if not rel <= tol:
@@ -1250,13 +1291,15 @@ def main(argv=None) -> int:
         f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     sass = sm90_sass(_build.library_path())
     for family, ops in sass.items():
-        log(f"[build] {family} bf16 tensor-core kernels' SASS: "
-            f"{ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA, "
-            f"{ops['WARPGROUP.DEPBAR']} WARPGROUP.DEPBAR, registers "
-            f"{ops['registers']}")
+        log(f"[build] {family} tensor-core kernels' SASS: "
+            + ", ".join(f"{ops[op]} {op}" for op in SASS_OPS)
+            + f", registers {ops['registers']}")
         op = SASS_FAMILIES[family][1]
         if ops[op] == 0:
-            raise AssertionError(f"the bf16 {family} kernels hold no {op}")
+            raise AssertionError(f"the {family} kernels hold no {op}")
+        if op != "HMMA" and ops["WARPGROUP.DEPBAR"] >= ops[op]:
+            raise AssertionError(f"the {family} kernels wait after every "
+                                 f"{op}: ptxas serialised the products")
 
     t0 = time.perf_counter()
     log("[kernels] kernel vs plain on the card")
@@ -1286,7 +1329,7 @@ def main(argv=None) -> int:
                "flash_attention": "bfloat16 joint",
                "blhd_attention": "bfloat16 clip",
                "fused_add_layer_norm": "bfloat16 [",
-               "w8a8_matmul": "bfloat16 clip fc",
+               "w8a8_matmul": "bfloat16 clip qkv",
                "flash_attention_bwd": "bfloat16 joint",
                "dw3x3_wgrad": "bfloat16 stage0"}
     kernels = []

@@ -45,7 +45,7 @@ SIGNATURES = {
                                 + [_F, _I, _I] + _DROPOUT + [_I, _P],
     "rtvc_blhd_attention": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _I, _P],
     "rtvc_w8a8_matmul": [_P] * 6 + [_I] * 4 + [_P],
-    "rtvc_dw3x3_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rtvc_dw3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

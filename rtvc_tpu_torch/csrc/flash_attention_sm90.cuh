@@ -4,7 +4,8 @@
 // Below the entry points, the Hopper helpers both sources use: mbarriers,
 // TMA loads through 4-d tensor maps (64 rows x 64 columns, 128-byte
 // swizzle), wgmma descriptors and products, bf16 packing (the last also
-// used by K1's window_attention_sm90.cu).
+// used by K1's window_attention_sm90.cu; the mbarriers, tensor-map encoder
+// and descriptors also by K7's w8a8_matmul_sm90.cu).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (CUDA driver API, found at run time)

@@ -10,6 +10,12 @@
 // and the bias are rounded to bfloat16 and so is their sum, else they add
 // in float32; float32 max, exponentials and sum; the probabilities rounded
 // to bfloat16 times V with float32 accumulation; the output bfloat16.
+// The softmax is float32 where the TPU kernel's native mode takes max, exp,
+// sum and divide in bf16 (rtvc_tpu/ops/attention.py:754-757): float32 is
+// the more exact, and the TPU's own rounding of that arithmetic under
+// --xla_allow_excess_precision is uncertain (:739-748). Against the JAX
+// kernel it costs 6.2e-3 of max|out| at N = 196, 80% of the 2^-7 limit
+// (window_attention_plain, tests/test_torch_ops.py).
 //
 // What bounds it on an H100: bytes. At stage 1 of a batch-8 caption step
 // ([768, 6, 49, 32]) q, k, v and out are 57.8 MB, 17.3 us at 3.35 TB/s,

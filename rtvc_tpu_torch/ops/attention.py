@@ -108,7 +108,17 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor,
     """K1's arithmetic in PyTorch ops: float32 score products; with
     ``softmax_in_input_dtype`` the scaled score, the bias and their sum are
     rounded to the input dtype; float32 softmax; probabilities rounded to
-    ``v.dtype``; float32 P.V; output in the input dtype."""
+    ``v.dtype``; float32 P.V; output in the input dtype.
+
+    The softmax stays float32 in both modes, here and in the card's K1. The
+    TPU kernel takes max, exp, sum and divide in the input dtype (bf16)
+    under ``softmax_in_input_dtype`` (rtvc_tpu/ops/attention.py:754-757);
+    float32 is the more exact of the two, and how the TPU rounds that bf16
+    arithmetic under ``--xla_allow_excess_precision`` is uncertain
+    (:739-748). Against the JAX kernel in interpret mode the choice costs
+    6.2e-3 of max|out| at N = 196 (4.6e-3 at N = 49), 80% of the 2^-7 the
+    bf16 K1 is held to (``test_k1_plain_stays_inside_the_card_limit_of_jax``
+    in tests/test_torch_ops.py)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale

@@ -37,8 +37,10 @@ def dw3x3_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 def dw3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """The depthwise 3x3 weight gradient, float32 ``[C, 1, 3, 3]``. CPU
     tensors take :func:`dw3x3_wgrad_plain`; CUDA tensors launch K9 (x and
-    dy contiguous ``[N, C, H, W]`` of one dtype, float32 or bfloat16) or
-    raise."""
+    dy contiguous ``[N, C, H, W]`` of one dtype, float32 or bfloat16, N at
+    most 65535, one plane of x and one of dy at most 200 KB together) or
+    raise. K9 sums each image into a float32 scratch ``[N, C, 9]``, then
+    those over N in a fixed order: the same bits on every run."""
     if x.device.type == "cpu":
         return dw3x3_wgrad_plain(x, dy)
     name = "dw3x3_wgrad"
@@ -48,10 +50,15 @@ def dw3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     _kernel.require(name, x.dtype == dy.dtype, "x and dy must share a dtype")
     n, c, h, w = x.shape
     code = _kernel.dtype_code(name, x)
+    _kernel.require(name, n <= 65535 and 2 * h * w * x.element_size()
+                    <= 200 * 1024,
+                    f"takes N <= 65535 and planes of at most 100 KB, got "
+                    f"{tuple(x.shape)} {x.dtype}")
     out = torch.empty((c, 9), dtype=torch.float32, device=x.device)
     if x.numel():
+        part = torch.empty((n, c, 9), dtype=torch.float32, device=x.device)
         _kernel.launch("rtvc_dw3x3_wgrad", x, x.data_ptr(), dy.data_ptr(),
-                       out.data_ptr(), n, c, h, w, code)
+                       part.data_ptr(), out.data_ptr(), n, c, h, w, code)
         dw3x3_wgrad.launches += 1
     else:
         out.zero_()

@@ -6,11 +6,13 @@ Counterpart of ``rtvc_tpu/ops/int8_gemm.py``:
   weight-only int8 GEMV of the student's 576→30522 vocab projection on the
   ``vocab_int8`` caption step. Unlike the JAX function, the output dtype
   is the dtype of ``x`` (the decode step asks for exactly that);
-- :func:`w8a8_matmul` / :func:`w8a8_dense` (K7, ``csrc/w8a8_matmul.cu``):
-  the W8A8 GEMM of the quantized teacher. ``wq`` keeps JAX's ``[K, N]``
-  shape, but the kernel reads it K-contiguous: pass the ``[K, N]``
-  transposed view of an ``[N, K]`` pack (``QuantLinear.weight_q.t()``,
-  made once by ``quantization.quantize_teacher_``).
+- :func:`w8a8_matmul` / :func:`w8a8_dense` (K7,
+  ``csrc/w8a8_matmul_sm90.cu``, int8 wgmma): the W8A8 GEMM of the
+  quantized teacher, bit-exact against :func:`w8a8_matmul_plain`. ``wq``
+  keeps JAX's ``[K, N]`` shape, but the kernel reads it K-contiguous: pass
+  the ``[K, N]`` transposed view of an ``[N, K]`` pack
+  (``QuantLinear.weight_q.t()``, made once by
+  ``quantization.quantize_teacher_``).
 """
 
 from __future__ import annotations

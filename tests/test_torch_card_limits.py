@@ -1,11 +1,12 @@
-"""The limits ``chip_smoke.py`` holds the bf16 tensor-core K1 and K8 to on
-the card, against kernels with one known fault, on the CPU: a limit that a
-faulty kernel passes checks nothing.
+"""The limits ``chip_smoke.py`` holds the bf16 tensor-core K1 and K8 and
+the W8A8 GEMM K7 to on the card, against kernels with one known fault, on
+the CPU: a limit that a faulty kernel passes checks nothing.
 
 Each fault is written as the plain version with one step changed, run on
 inputs from a numpy seed at the shapes the card checks use (K1 at the six
 caption-step stages; K8 with the joint head dim and dropout 0.1, cut in
-length), and must miss the plain version by more than the card's limit.
+length; K7 at CLIP's qkv cut to 256 rows), and must miss the plain version
+by more than the card's limit.
 """
 
 import importlib.util
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from rtvc_tpu_torch.ops import attention
+from rtvc_tpu_torch.ops import attention, int8_gemm
 
 ROOT = Path(__file__).resolve().parent.parent
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -104,3 +105,56 @@ def test_k8_fault_model_is_the_plain_version_without_a_fault():
     args, want = _k8_case()
     for a, b in zip(_k8_faulty(None, *args, **K8_KW), want):
         torch.testing.assert_close(a.float(), b.float(), atol=0, rtol=0)
+
+
+def _k7_case():
+    """CLIP's qkv [1024 -> 3072] cut to 256 rows, int8 operands and the
+    scale and bias ranges of the card's K7 cases: (xq, sx, wq [K, N], sw,
+    bias)."""
+    rng = np.random.default_rng(11)
+    m, k, n = 256, 1024, 3072
+    xq, wq = (torch.from_numpy(rng.integers(-127, 128, size=s, dtype=np.int8))
+              for s in ((m, k), (k, n)))
+    sx = torch.from_numpy((rng.random(m) * 0.02 + 1e-3).astype(np.float32))
+    sw = torch.from_numpy((rng.random(n) * 1e-3 + 1e-4).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.normal(size=n)).astype(np.float32))
+    return xq, sx, wq, sw, bias
+
+
+def _k7_faulty(fault, xq, sx, wq, sw, bias, out_dtype):
+    """w8a8_matmul_plain with its float32 epilogue changed."""
+    acc = torch.matmul(xq.double(), wq.double()).float()
+    t = acc * sx[:, None]
+    if fault == "fma epilogue":  # t * sw + bias rounded once
+        y = (t.double() * sw.double() + bias.double()).float()
+    elif fault == "bias before sw":
+        y = (t + bias) * sw
+    elif fault == "scales multiplied first":
+        y = acc * (sx[:, None] * sw) + bias
+    else:
+        y = t * sw + bias
+    return y.to(out_dtype)
+
+
+K7_FAULTS = ["fma epilogue", "bias before sw", "scales multiplied first"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fault", K7_FAULTS)
+def test_k7_card_limit_rejects_a_reordered_epilogue(fault, dtype):
+    """K7 is held bit for bit: an epilogue that rounds in another order
+    misses the plain version by more than 0."""
+    args = _k7_case()
+    want = int8_gemm.w8a8_matmul_plain(*args, getattr(torch, dtype))
+    tol, floor = chip_smoke.limit("w8a8_matmul", dtype)
+    _, rel = chip_smoke.rel_err(
+        _k7_faulty(fault, *args, getattr(torch, dtype)), want, floor)
+    assert tol == 0.0 and rel > tol, f"{fault}: misses by {rel:.3e}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k7_fault_model_is_the_plain_version_without_a_fault(dtype):
+    args = _k7_case()
+    assert torch.equal(_k7_faulty(None, *args, getattr(torch, dtype)),
+                       int8_gemm.w8a8_matmul_plain(*args,
+                                                   getattr(torch, dtype)))

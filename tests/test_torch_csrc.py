@@ -83,3 +83,14 @@ def test_tensor_core_sources_say_what_bounds_them(src):
     assert "What bounds it on an H100" in note
     assert re.search(r"\d+(\.\d+)? us", note), f"{src.name}: no bound in us"
     assert "Design:" in note
+
+
+def test_profile_w8a8_variants_apply_to_the_k7_source():
+    """``python -m rtvc_tpu_torch.profile_w8a8`` times K7 with parts of its
+    epilogue cut out by text edits of the source: each edit must still
+    apply exactly once."""
+    from rtvc_tpu_torch import profile_w8a8
+    whole = profile_w8a8.SOURCE.read_text()
+    for name in profile_w8a8.VARIANTS:
+        src = profile_w8a8.variant_source(name)
+        assert (src == whole) == (not profile_w8a8.VARIANTS[name]), name
