@@ -15,8 +15,8 @@ int window_attention_sm90(const void* q, const void* k, const void* v,
                           int N, float scale, int scores_in_input_dtype,
                           cudaStream_t stream);
 
-// SMs of the current device, asked once: both K1 kernels and K7 size
-// their grids by it
+// SMs of the current device, asked once: both K1 kernels, K2, K3 and K7
+// size their grids by it
 int device_sm_count();
 
 }  // namespace rtvc

@@ -5,7 +5,10 @@ Counterpart of ``rtvc_tpu/ops/int8_gemm.py``:
 - :func:`w8_matmul` / :func:`w8_dense` (K3, ``csrc/w8_matmul.cu``): the
   weight-only int8 GEMV of the student's 576→30522 vocab projection on the
   ``vocab_int8`` caption step. Unlike the JAX function, the output dtype
-  is the dtype of ``x`` (the decode step asks for exactly that);
+  is the dtype of ``x`` (the decode step asks for exactly that). ``wq``
+  keeps JAX's ``[K, N]`` shape, but the kernel reads it K-contiguous: on a
+  card, pass the ``[K, N]`` transposed view of an ``[N, K]`` pack (as
+  ``quantization.quantize_vocab_head`` returns it, made once);
 - :func:`w8a8_matmul` / :func:`w8a8_dense` (K7,
   ``csrc/w8a8_matmul_sm90.cu``, int8 wgmma): the W8A8 GEMM of the
   quantized teacher, bit-exact against :func:`w8a8_matmul_plain`. ``wq``
@@ -39,9 +42,12 @@ def w8_matmul(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x [M, K]`` float32/bfloat16, ``wq [K, N]`` int8, ``sw`` and ``bias``
     N float32 values → ``[M, N]`` in ``x.dtype``. CPU tensors take
-    :func:`w8_matmul_plain`; CUDA tensors launch K3 (contiguous, M ≤ 32,
-    N a multiple of 4, nothing requiring grad: K3 has no backward) or
-    raise."""
+    :func:`w8_matmul_plain` (any layout of ``wq``); CUDA tensors launch K3
+    or raise. K3 takes ``x`` contiguous with 1 ≤ M ≤ 32, ``wq`` the
+    transposed view of a contiguous ``[N, K]`` pack (never copied here: a
+    copy would move the whole weight again on every call), K a multiple of
+    16, 16-byte aligned operands, and nothing requiring grad (K3 has no
+    backward)."""
     if x.device.type == "cpu":
         return w8_matmul_plain(x, wq, sw, bias)
     name = "w8_matmul"
@@ -50,22 +56,27 @@ def w8_matmul(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                     "x and wq must be 2-D")
     m, k = x.shape
     n = wq.shape[1]
-    tensors = [x, wq, sw] + ([bias] if bias is not None else [])
-    _kernel.require_cuda(name, *tensors)
     _kernel.require(name, wq.shape[0] == k,
                     f"wq must be [{k}, N], got {tuple(wq.shape)}")
+    pack = wq.t()
+    _kernel.require(name, pack.is_contiguous(),
+                    "wq must be the [K, N] view of a contiguous [N, K] pack "
+                    "(quantization.quantize_vocab_head)")
+    tensors = [x, pack, sw] + ([bias] if bias is not None else [])
+    _kernel.require_cuda(name, *tensors)
     _kernel.require(name, wq.dtype == torch.int8, "wq must be int8")
     _kernel.require(name, 1 <= m <= MAX_ROWS,
                     f"takes 1 <= M <= {MAX_ROWS} rows, got {m}")
-    _kernel.require(name, n % 4 == 0 and wq.data_ptr() % 4 == 0,
-                    f"wq rows must be 4-byte aligned (N % 4 == 0), got N={n}")
+    _kernel.require(name, k % 16 == 0 and x.data_ptr() % 16 == 0
+                    and pack.data_ptr() % 16 == 0,
+                    f"takes K % 16 == 0 and 16-byte aligned x and wq, K={k}")
     for t, what in ((sw, "sw"), (bias, "bias")):
         if t is not None:
             _kernel.require(name, t.dtype == torch.float32 and t.numel() == n,
                             f"{what} must hold {n} float32 values")
     code = _kernel.dtype_code(name, x)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    _kernel.launch("rtvc_w8_matmul", x, x.data_ptr(), wq.data_ptr(),
+    _kernel.launch("rtvc_w8_matmul", x, x.data_ptr(), pack.data_ptr(),
                    sw.data_ptr(), 0 if bias is None else bias.data_ptr(),
                    out.data_ptr(), m, k, n, code)
     w8_matmul.launches += 1

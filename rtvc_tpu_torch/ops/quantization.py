@@ -41,15 +41,18 @@ def quantize_vocab_head(linear: nn.Linear) -> Dict[str, torch.Tensor]:
     """The vocab projection ``linear`` (torch layout ``[V, D]``) →
     ``{"wq" [D, Vp] int8, "sw" [1, Vp] f32, "bias" [1, Vp] f32}``, Vp the
     vocab rounded up to 1024, for the ``vocab_w8`` route of the decode
-    step. Compute it once per weight set."""
+    step. ``wq`` holds JAX's values in JAX's shape, as the transposed view
+    of a contiguous ``[Vp, D]`` pack: kernel K3 reads each output column's
+    D weights as one contiguous run. Compute it once per weight set."""
     wq, sw = quantize_weight(linear.weight.t())
+    pack = wq.t().contiguous()
     bias = linear.bias.float()
-    pad = (-wq.shape[1]) % PAD_MULTIPLE
+    pad = (-pack.shape[0]) % PAD_MULTIPLE
     if pad:
-        wq = F.pad(wq, (0, pad))
+        pack = F.pad(pack, (0, 0, 0, pad))
         sw = F.pad(sw, (0, pad))
         bias = F.pad(bias, (0, pad), value=PAD_BIAS)
-    return {"wq": wq.contiguous(), "sw": sw.reshape(1, -1),
+    return {"wq": pack.t(), "sw": sw.reshape(1, -1),
             "bias": bias.reshape(1, -1)}
 
 

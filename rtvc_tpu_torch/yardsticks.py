@@ -202,6 +202,14 @@ def w8_library(x, wq, sw, b=None) -> Yardstick:
                      lambda: torch._weight_int8pack_mm(x, w_nk, scales))
 
 
+def w8_replaced_library(x, weight, bias=None) -> Yardstick:
+    """Not a yardstick of K3: what the ``vocab_int8`` caption step
+    replaces, the default step's vocab projection ``F.linear`` over the
+    unquantized ``[V, K]`` weight in x's dtype. Timed beside K3 only."""
+    return Yardstick("F.linear, the default step's unquantized projection",
+                     lambda: F.linear(x, weight, bias))
+
+
 def w8a8_library(xq, sx, wq, sw, b, out_dtype) -> Yardstick:
     """K7: ``torch._int_mm``, the int32 product alone (no rescale, bias or
     cast)."""

@@ -1,12 +1,15 @@
-"""The limits ``chip_smoke.py`` holds the bf16 tensor-core K1 and K8 and
-the W8A8 GEMM K7 to on the card, against kernels with one known fault, on
-the CPU: a limit that a faulty kernel passes checks nothing.
+"""The limits ``chip_smoke.py`` holds the bf16 tensor-core K1 and K8, the
+W8A8 GEMM K7, the float32 LayerNorm K2 and the int8 GEMV K3 to on the
+card, against kernels with one known fault, on the CPU: a limit that a
+faulty kernel passes checks nothing.
 
 Each fault is written as the plain version with one step changed, run on
 inputs from a numpy seed at the shapes the card checks use (K1 at the six
 caption-step stages; K8 with the joint head dim and dropout 0.1, cut in
-length; K7 at CLIP's qkv cut to 256 rows), and must miss the plain version
-by more than the card's limit.
+length; K7 at CLIP's qkv cut to 256 rows; K2 on the card's rows of mean 64
+and the decode's [8, 576]; K3 at the decode's 8 rows and K = 576, the
+vocab cut to 4096 columns), and must miss the plain version by more than
+the card's limit.
 """
 
 import importlib.util
@@ -16,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from rtvc_tpu_torch.ops import attention, int8_gemm
+from rtvc_tpu_torch.ops import attention, int8_gemm, layernorm
 
 ROOT = Path(__file__).resolve().parent.parent
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -158,3 +161,121 @@ def test_k7_fault_model_is_the_plain_version_without_a_fault(dtype):
     assert torch.equal(_k7_faulty(None, *args, getattr(torch, dtype)),
                        int8_gemm.w8a8_matmul_plain(*args,
                                                    getattr(torch, dtype)))
+
+
+def _k2_rows(rows, width, seed=21):
+    """Rows of mean 64 and spread 2 (the card's "mean 64" case), weight and
+    bias, float32."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(rows, width)) * 2 + 64).astype(np.float32)
+    w, b = (rng.normal(size=width).astype(np.float32) for _ in range(2))
+    return torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)
+
+
+def _k2_kernel_order(x, w, b, one_pass, eps=1e-5, lanes=32):
+    """K2 as a warp sums a row: lane l takes columns l, l + 32, ... in
+    order, then a butterfly over the lanes; the variance centred (two
+    passes) or as E[x^2] - mean^2 (one pass, the fault)."""
+    rows, width = x.shape
+    cols = x.reshape(rows, -1, lanes)
+
+    def butterfly(v):
+        o = lanes // 2
+        while o:
+            v = v + v[:, torch.arange(lanes) ^ o]
+            o //= 2
+        return v[:, :1]
+
+    total = torch.zeros(rows, lanes)
+    for i in range(cols.shape[1]):
+        total = total + cols[:, i]
+    mean = butterfly(total) * (1.0 / width)
+    sq = torch.zeros(rows, lanes)
+    for i in range(cols.shape[1]):
+        d = cols[:, i] if one_pass else cols[:, i] - mean
+        sq = sq + d * d
+    var = butterfly(sq) * (1.0 / width)
+    if one_pass:
+        var = var - mean * mean
+    return (x - mean) * torch.rsqrt(var + eps) * w + b
+
+
+K2_SHAPES = [(8, 576), (2352, 576)]
+
+
+@pytest.mark.parametrize("rows,width", K2_SHAPES,
+                         ids=[f"{r}x{w}" for r, w in K2_SHAPES])
+def test_k2_card_limit_rejects_a_one_pass_variance(rows, width):
+    """In float32 the card holds K2 to 2e-5 of max(1, max|plain|): the TOL
+    of 1e-4 passes a one-pass variance at the decode's [8, 576]."""
+    x, w, b = _k2_rows(rows, width)
+    want = layernorm.layer_norm_plain(x, w, b)
+    tol, floor = chip_smoke.limit("layer_norm", "float32")
+    _, rel = chip_smoke.rel_err(_k2_kernel_order(x, w, b, True), want, floor)
+    assert rel > tol, f"the one-pass variance misses by {rel:.3e} <= {tol:g}"
+    _, loose = chip_smoke.rel_err(_k2_kernel_order(x, w, b, True), want)
+    assert rows > 8 or loose <= chip_smoke.TOL["float32"]
+
+
+@pytest.mark.parametrize("rows,width", K2_SHAPES,
+                         ids=[f"{r}x{w}" for r, w in K2_SHAPES])
+def test_k2_centred_variance_in_kernel_order_is_inside_the_limit(rows,
+                                                                 width):
+    x, w, b = _k2_rows(rows, width)
+    tol, floor = chip_smoke.limit("layer_norm", "float32")
+    _, rel = chip_smoke.rel_err(_k2_kernel_order(x, w, b, False),
+                                layernorm.layer_norm_plain(x, w, b), floor)
+    assert rel <= tol / 4, f"{rel:.3e} of max(1, max|plain|)"
+
+
+def _k3_case(dtype):
+    """x [8, 576] in ``dtype``, wq [576, 4096] int8 and the scale and bias
+    ranges of the card's K3 cases."""
+    rng = np.random.default_rng(22)
+    m, k, n = 8, 576, 4096
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        getattr(torch, dtype))
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(k, n),
+                                       dtype=np.int8))
+    sw = torch.from_numpy((rng.random(n) / (127 * 24)).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.normal(size=n)).astype(np.float32))
+    return x, wq, sw, bias
+
+
+def _k3_faulty(fault, x, wq, sw, bias):
+    """w8_matmul_plain with one step changed: one 16-wide k-slice (one
+    lane's 16-byte load) left out, or x rounded to bf16 first."""
+    x32 = x.float()
+    if fault == "dropped k-slice":
+        x32 = x32.clone()
+        x32[:, 16:32] = 0.0
+    elif fault == "x rounded to bf16":
+        x32 = x32.to(torch.bfloat16).float()
+    y = torch.matmul(x32, wq.float()) * sw.reshape(1, -1) + bias
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_card_limit_rejects_a_dropped_k_slice(dtype):
+    args = _k3_case(dtype)
+    tol, floor = chip_smoke.limit("w8_matmul", dtype)
+    _, rel = chip_smoke.rel_err(_k3_faulty("dropped k-slice", *args),
+                                int8_gemm.w8_matmul_plain(*args), floor)
+    assert rel > tol, f"a dropped k-slice misses by {rel:.3e} <= {tol:g}"
+
+
+def test_k3_card_limit_rejects_x_rounded_to_bf16():
+    """float32 x takes the CUDA-core kernel: the tensor cores' bf16 x would
+    be another function."""
+    args = _k3_case("float32")
+    tol, floor = chip_smoke.limit("w8_matmul", "float32")
+    _, rel = chip_smoke.rel_err(_k3_faulty("x rounded to bf16", *args),
+                                int8_gemm.w8_matmul_plain(*args), floor)
+    assert rel > tol, f"bf16 x misses by {rel:.3e} <= {tol:g}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_fault_model_is_the_plain_version_without_a_fault(dtype):
+    args = _k3_case(dtype)
+    assert torch.equal(_k3_faulty(None, *args),
+                       int8_gemm.w8_matmul_plain(*args))

@@ -94,3 +94,23 @@ def test_profile_w8a8_variants_apply_to_the_k7_source():
     for name in profile_w8a8.VARIANTS:
         src = profile_w8a8.variant_source(name)
         assert (src == whole) == (not profile_w8a8.VARIANTS[name]), name
+
+
+@pytest.mark.parametrize("name", ["layer_norm.cu", "w8_matmul.cu"])
+def test_redesigned_decode_sources_say_what_bounds_them(name):
+    """K2 and K3, the decode's kernels, state their bound and design as the
+    tensor-core sources do."""
+    note = (CSRC / name).read_text().split("#include")[0]
+    assert "What bounds it on an H100" in note
+    assert re.search(r"\d+(\.\d+)? us", note), f"{name}: no bound in us"
+    assert "Design:" in note
+
+
+def test_profile_w8_variants_apply_to_the_k3_source():
+    """``python -m rtvc_tpu_torch.profile_w8`` times K3 cut apart by text
+    edits of the source: each edit must still apply exactly once."""
+    from rtvc_tpu_torch import profile_w8
+    whole = profile_w8.SOURCE.read_text()
+    for name in profile_w8.VARIANTS:
+        src = profile_w8.variant_source(name)
+        assert (src == whole) == (not profile_w8.VARIANTS[name]), name

@@ -197,8 +197,16 @@ def test_layer_norm_matches_pallas_ln(rows, width):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("with_bias", [True, False])
-def test_w8_matmul_matches_jax(with_bias):
+# (bias, layout of wq): JAX's [K, N] array under the old ids, and the [K, N]
+# view of an [N, K] pack, the layout K3 reads on a card
+W8_CASES = [(bias, layout) for layout in ("kn", "pack")
+            for bias in (True, False)]
+
+
+@pytest.mark.parametrize(
+    "with_bias,layout", W8_CASES,
+    ids=[str(b) if lay == "kn" else f"{b}-{lay}" for b, lay in W8_CASES])
+def test_w8_matmul_matches_jax(with_bias, layout):
     rng = np.random.default_rng(7)
     m, k, n = 5, 32, 200
     x = rng.normal(size=(m, k)).astype(np.float32)
@@ -209,7 +217,9 @@ def test_w8_matmul_matches_jax(with_bias):
         jnp.asarray(x), jnp.asarray(wq), jnp.asarray(sw),
         bias=None if b is None else jnp.asarray(b), out_dtype=jnp.float32,
         tn=128, interpret=True)
-    got = int8_gemm.w8_dense(_t(x)[None], _t(wq), _t(sw),
+    twq = _t(wq) if layout == "kn" else _t(np.ascontiguousarray(wq.T)).t()
+    assert twq.is_contiguous() == (layout == "kn")
+    got = int8_gemm.w8_dense(_t(x)[None], twq, _t(sw),
                              None if b is None else _t(b))[0]
     assert got.shape == (m, n)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
@@ -237,6 +247,36 @@ def test_quantize_vocab_head_pack_equals_jax():
     np.testing.assert_array_equal(got["bias"].numpy(),
                                   np.asarray(want["bias"]))
     assert float(got["bias"][0, -1]) == -1e9
+
+
+def test_quantize_vocab_head_is_a_view_of_a_k_contiguous_pack():
+    """``wq`` is the [D, Vp] view of a contiguous [Vp, D] pack, which K3
+    reads on a card without a copy; the pad rows are zero."""
+    linear = torch.nn.Linear(24, 1100)
+    got = quantization.quantize_vocab_head(linear)
+    pack = got["wq"].t()
+    assert pack.is_contiguous() and pack.shape == (2048, 24)
+    assert not bool(pack[1100:].any())
+    want = quantization.quantize_weight(linear.weight.detach().t())[0]
+    assert torch.equal(got["wq"][:, :1100], want)
+
+
+def test_layer_norm_large_mean_matches_pallas_ln():
+    """Rows of mean 64 and spread 2 (the card's "mean 64" case), float32:
+    the centred variance of ``_pallas_ln`` and the port's plain version
+    agree inside the card's K2 limit, which a one-pass E[x^2] - mean^2
+    misses (tests/test_torch_card_limits.py)."""
+    rng = np.random.default_rng(23)
+    rows, width = 40, 576
+    x = (rng.normal(size=(rows, width)) * 2 + 64).astype(np.float32)
+    scale, bias = (rng.normal(size=(width,)).astype(np.float32)
+                   for _ in range(2))
+    want = jlayernorm._pallas_ln(jnp.asarray(x), jnp.asarray(scale),
+                                 jnp.asarray(bias), 1e-5, interpret=True)
+    got = layernorm.layer_norm(_t(x), _t(scale), _t(bias))
+    tol, floor = chip_smoke.limit("layer_norm", "float32")
+    rel = chip_smoke.rel_err(got, _t(np.asarray(want)), floor)[1]
+    assert rel <= tol / 4, f"{rel:.3e} of max(1, max|want|)"
 
 
 @pytest.mark.parametrize("shape,crop", [((2, 480, 640, 3), 224),
@@ -747,8 +787,8 @@ def test_kernels_match_plain_on_cuda(cuda, dtype, tol):
     want = layernorm.layer_norm_plain(x, w, b)
     assert (got.float() - want.float()).abs().max() <= tol * 4
 
-    wq = torch.randint(-127, 128, (576, 1024), generator=g,
-                       dtype=torch.int8).to(cuda)
+    wq = torch.randint(-127, 128, (1024, 576), generator=g,
+                       dtype=torch.int8).to(cuda).t()  # the pack's view
     sw, bb = rand(1024).abs() * 1e-3, rand(1024)
     for m in (1, 8):
         xm = rand(m, 576).to(dtype)
@@ -857,6 +897,16 @@ def test_dw3x3_wgrad_matches_plain_on_cuda(cuda, dtype, tol):
     x, dy = (rand(4, 24, 14, 14).to(dtype) for _ in range(2))
     _assert_close_on_cuda(depthwise.dw3x3_wgrad(x, dy),
                           depthwise.dw3x3_wgrad_plain(x, dy), tol)
+
+
+@pytest.mark.cuda
+def test_w8_matmul_refuses_a_k_by_n_contiguous_weight_on_cuda(cuda):
+    """K3 reads the [N, K] pack; a contiguous [K, N] wq would need a copy of
+    the whole weight on every call, so the wrapper raises instead."""
+    wq = torch.ones(576, 1024, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="pack"):
+        int8_gemm.w8_matmul(torch.ones(8, 576, device=cuda), wq,
+                            torch.ones(1024, device=cuda))
 
 
 @pytest.mark.cuda

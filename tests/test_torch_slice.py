@@ -118,6 +118,7 @@ def test_port_imports_no_jax_flax_or_cv2():
                "rtvc_tpu_torch.models.git_teacher",
                "rtvc_tpu_torch.models.convert", "rtvc_tpu_torch.decode",
                "rtvc_tpu_torch.serving", "rtvc_tpu_torch.profile_teacher",
+               "rtvc_tpu_torch.profile_w8", "rtvc_tpu_torch.profile_w8a8",
                "rtvc_tpu_torch.ops.dropout", "rtvc_tpu_torch.ops.depthwise",
                "rtvc_tpu_torch.distill", "rtvc_tpu_torch.train"]
     code = ("import importlib, sys\n"

@@ -132,6 +132,18 @@ def test_w8_yardstick_plus_bias_matches_plain():
     _close(y.fn() + b, int8_gemm.w8_matmul_plain(x, wq, sw, b), 1e-5)
 
 
+def test_w8_replaced_projection_is_the_plain_version_unquantized():
+    """What vocab_int8 replaces, ``F.linear`` over the float weight, is
+    K3's function on the dequantized weight ``wq · sw``."""
+    rand = _rand(12)
+    x = rand(4, 64)
+    wq = torch.from_numpy(np.random.default_rng(13).integers(
+        -127, 128, (64, 24)).astype(np.int8))
+    sw, b = rand(24).abs() * 1e-2, rand(24)
+    y = Y.w8_replaced_library(x, (wq.float() * sw).t(), b)
+    _close(y.fn(), int8_gemm.w8_matmul_plain(x, wq, sw, b), 1e-5)
+
+
 def test_w8a8_yardstick_is_the_exact_int32_product():
     rng = np.random.default_rng(11)
     xq, wq = (torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8))
