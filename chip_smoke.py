@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's caption step, frozen teacher and distillation
-train step once on an NVIDIA GPU.
+"""Drive the PyTorch port's caption step and its server, frozen teacher
+and distillation train step once on an NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -14,9 +14,9 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    every warpgroup product fails);
 3. kernels: K1 (window attention), K2 (LayerNorm) and K3 (int8 GEMV,
    with a warm and a cold L2, beside the bf16 projection it replaces) at
-   the caption step's shapes, K2, K4 (flash attention), K5 (BLHD
-   attention), K6 (add + LayerNorm) and K7 (W8A8 GEMM, bit for bit) at
-   the teacher's, K4 with dropout, K8 (flash backward, with and without
+   the caption step's shapes, K2 and K3 also at the beam's B·k rows, K2,
+   K4 (flash attention), K5 (BLHD attention), K6 (add + LayerNorm) and K7
+   (W8A8 GEMM, bit for bit) at the teacher's, K4 with dropout, K8 (flash backward, with and without
    dropout) and K9 (depthwise 3x3 weight gradient, run twice for the same
    bits) at the train step's, in bfloat16 and float32, each held against
    its plain PyTorch version on the card and timed against it and its
@@ -33,7 +33,19 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    after; every kernel of the path must have launched. Then, in float32
    with TF32 off, the card's encoder memory, first-step logits and token
    rows are held against the same step run on the CPU (plain versions);
-5. teacher: the full-width GIT-Large teacher (CLIP ViT-L/14 + the 6-layer
+5. serve: the same student and windows through the beam step
+   (``make_caption_step(beam=3)``, default and ``vocab_int8``, batch 1 and
+   8, launch counts reset before and read after: K1 and K2 must launch,
+   K3 once a step under ``vocab_int8``), the f32 beam's card-vs-CPU
+   first-word divergence (reported), then ``BatchCaptionServer`` (max
+   batch 8, greedy and beam 3, the synthetic tokenizer) behind
+   ``CaptionHTTPFrontend`` on 127.0.0.1: 8 windows submitted at once from
+   8 streams must form one batch whose rows equal the direct step's bit
+   for bit, and 3 bursts of 8 concurrent HTTP requests (raw and JSON
+   frames) must all answer 200 with the in-process captions. The
+   JPEG/PNG frame path needs ``cv2``, which the card's machine lacks: it
+   is tested on the CPU (tests/test_torch_serving_http.py), not here;
+6. teacher: the full-width GIT-Large teacher (CLIP ViT-L/14 + the 6-layer
    joint decoder, random weights from a seeded generator, bfloat16) runs
    ``forward_output_logits`` on 8 preprocessed windows with 40-token
    captions and four encoder taps, then the same on its W8A8 copy
@@ -44,7 +56,7 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    same input. Then, in float32 with TF32 off, a depth-cut teacher (2 CLIP
    blocks, 2 joint layers, full widths) on the card is held against the
    same model on the CPU;
-6. train: the full-width student (bfloat16 compute over float32 master
+7. train: the full-width student (bfloat16 compute over float32 master
    weights) and the full-width teacher run 5 steps of the default
    ``make_train_step`` (kl + ce, dropout 0.3, DropPath, Adam at lr 1e-4)
    on 8 preprocessed windows with 40-token captions, printing each step's
@@ -115,6 +127,9 @@ GRAD_FLOOR = 1e-4
 CAPTION_LEN = 40               # teacher-forced caption tokens
 TAPS = (0, 6, 12, 18)          # CLIP blocks tapped for distillation
 BEAM_BATCH, BEAMS, BEAM_STEPS = 2, 4, 15
+SERVE_BEAM = 3                 # the student beam's k in the serve phase
+SERVER_WAIT_MS = 50.0          # the server's linger: 8 submits form 1 batch
+HTTP_ROUNDS = 3                # bursts of 8 concurrent HTTP requests
 
 KERNELS = {
     "window_attention": ("rtvc_tpu_torch/csrc/window_attention_sm90.cu",
@@ -395,7 +410,8 @@ def kernel_cases(dev, g):
                         dict(softmax_in_input_dtype=native), Y.window_work,
                         Y.window_library)
         # K2 where the caption step launches it: the decoder's [B, 576]
-        # norms at b1 and b8, TinyViT's norms at b8 (stage 1-3 attention
+        # norms at b1 and b8, and at the beam's B·k rows ([3, 576] and
+        # [24, 576] with k = 3), TinyViT's norms at b8 (stage 1-3 attention
         # and MLP norms: [37632, 192], [9408, 384], [2352, 576]), and the
         # [200, 576] earlier records quoted; then rows of mean 64 and
         # spread 2, where a one-pass variance would lose the spread; then
@@ -405,6 +421,8 @@ def kernel_cases(dev, g):
         tiny = 8 * FRAMES
         for label, rows, width, mean, reps in (
                 ("", 1, 576, 0.0, 50), ("", 8, 576, 0.0, 50),
+                ("beam ", SERVE_BEAM, 576, 0.0, 50),
+                ("beam ", WINDOWS * SERVE_BEAM, 576, 0.0, 50),
                 ("", 8 * 25, 576, 0.0, 50), ("", tiny * 28 * 28, 192, 0.0, 50),
                 ("", tiny * 14 * 14, 384, 0.0, 50),
                 ("", tiny * 7 * 7, 576, 0.0, 50),
@@ -416,11 +434,13 @@ def kernel_cases(dev, g):
                 ((rand(rows, width, scale=2.0) + mean).to(dtype),
                  rand(width, dtype=dtype), rand(width, dtype=dtype)), {},
                 Y.layer_norm_work, Y.layer_norm_library)
-        # K3 on the vocab pack: warm (one weight, which the 50 MB L2 keeps
-        # between calls) and cold (each call the next of 5 weights, 91.5 MB,
-        # so each finds its weight evicted); then the edges (correctness
-        # only): M = 3, 16 and 32 (a partial and two and four n-tiles),
-        # N = 1000 (a partial tile), K = 144 (a partial 64-k chunk), no bias
+        # K3 on the vocab pack at the greedy step's M = 1 and 8 and the
+        # beam's M = B·k = 3 and 24: warm (one weight, which the 50 MB L2
+        # keeps between calls) and cold (each call the next of 5 weights,
+        # 91.5 MB, so each finds its weight evicted); then the edges
+        # (correctness only): M = 3, 16 and 32 (a partial and two and four
+        # n-tiles), N = 1000 (a partial tile), K = 144 (a partial 64-k
+        # chunk), no bias
         packs = [torch.randint(-127, 128, (31744, 576), generator=g,
                                dtype=torch.int8).to(dev)
                  for _ in range(5 if dtype == torch.bfloat16 else 1)]
@@ -428,7 +448,7 @@ def kernel_cases(dev, g):
         bb = rand(31744, scale=0.1)
         vocab_w = rand(30522, 576, dtype=dtype, scale=0.04)
         vocab_b = rand(30522, dtype=dtype, scale=0.1)
-        for m in (1, 8):
+        for m in (1, 8, SERVE_BEAM, WINDOWS * SERVE_BEAM):
             x = rand(m, 576, dtype=dtype)
             add("w8_matmul", f"{dn} M={m} [576,31744]", 50,
                 int8_gemm.w8_matmul, int8_gemm.w8_matmul_plain,
@@ -764,9 +784,12 @@ def make_windows(g):
             .reshape(WINDOWS, FRAMES, *FRAME_HW, 3).contiguous())
 
 
-def check_rows(rows, vocab: int, cls_id: int) -> None:
+def check_rows(rows, vocab: int, cls_id: int,
+               width: int = 1 + MAX_LEN) -> None:
+    """int32 rows ``[B, width]`` (greedy: 1 + MAX_LEN; beam: MAX_LEN),
+    CLS first, every id in the vocabulary."""
     import torch
-    if rows.dtype != torch.int32 or rows.shape[1] != 1 + MAX_LEN:
+    if rows.dtype != torch.int32 or rows.shape[1] != width:
         raise AssertionError(f"rows {rows.dtype} {tuple(rows.shape)}")
     if not bool((rows[:, 0] == cls_id).all()):
         raise AssertionError("rows must start with CLS")
@@ -805,13 +828,15 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def serve(student, windows, vocab_int8: bool):
-    """The main path: 8 windows one by one, then as one batch of 8.
-    Returns (rows at batch 1, rows at batch 8, ms per window at batch 1,
-    ms per window at batch 8, launch counts of this run)."""
+def serve(student, windows, vocab_int8: bool, beam: int = 0):
+    """The main path: 8 windows one by one, then as one batch of 8, greedy
+    or with ``beam`` beams. Returns (rows at batch 1, rows at batch 8, ms
+    per window at batch 1, ms per window at batch 8, launch counts of this
+    run)."""
     import torch
     from rtvc_tpu_torch.serving import make_caption_step
-    step = make_caption_step(student, max_len=MAX_LEN, vocab_int8=vocab_int8)
+    step = make_caption_step(student, max_len=MAX_LEN, beam=beam,
+                             vocab_int8=vocab_int8)
     for i in range(WINDOWS):   # warm-up pass: cuDNN, allocator, clocks
         step(windows[i:i + 1])
     step(windows)
@@ -901,19 +926,30 @@ def f32_check(student_f32, windows_cpu, dev) -> dict:
     return out
 
 
-def slice_phase(dev) -> dict:
+def slice_inputs(dev) -> tuple:
+    """(the full-width float32 student on the CPU, random weights from
+    SEED; its bfloat16 copy on the card with the int8 vocab pack; the 8
+    windows on the CPU), shared by the slice and serve phases."""
     import torch
     from rtvc_tpu_torch.config import cfg
     from rtvc_tpu_torch.models.student import random_init_, student_from_config
-    from rtvc_tpu_torch.serving import truncate_at_sep, with_vocab_w8
+    from rtvc_tpu_torch.serving import with_vocab_w8
 
     g = torch.Generator().manual_seed(SEED)
     student_f32 = random_init_(student_from_config(cfg, device="cpu"),
                                g).eval()
     windows_cpu = make_windows(g)
-    windows = windows_cpu.to(dev)
     student = copy.deepcopy(student_f32).to(dev, cfg.dtype)
     with_vocab_w8(student)
+    return student_f32, student, windows_cpu
+
+
+def slice_phase(dev, student_f32, student, windows_cpu) -> dict:
+    import torch
+    from rtvc_tpu_torch.config import cfg
+    from rtvc_tpu_torch.serving import truncate_at_sep
+
+    windows = windows_cpu.to(dev)
     vocab, cls_id = cfg.student.vocab_size, cfg.student.cls_token_id
     result = {"compute_dtype": cfg.compute_dtype, "launches": {}}
     for mode, vocab_int8 in (("default", False), ("vocab_int8", True)):
@@ -954,7 +990,240 @@ def slice_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the frozen teacher
+# phase 5: the serving surface
+# ---------------------------------------------------------------------------
+
+def f32_beam_report(student_f32, windows_cpu, dev) -> float:
+    """The f32 beam step on the card (kernels, TF32 off) against the same
+    step on the CPU (plain versions): the share of rows whose first word
+    differs. Reported, not gated: random weights give near-flat logits."""
+    import torch
+    from rtvc_tpu_torch.serving import make_caption_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = copy.deepcopy(student_f32).to(dev)
+    rows_cpu = make_caption_step(student_f32, max_len=MAX_LEN,
+                                 beam=SERVE_BEAM)(windows_cpu)
+    rows_card = make_caption_step(card, max_len=MAX_LEN, beam=SERVE_BEAM)(
+        windows_cpu.to(dev)).cpu()
+    del card
+    return first_token_divergence(rows_card, rows_cpu)
+
+
+def http_client():
+    """A urllib opener that never reads a proxy from the environment: the
+    requests go to the loopback front and nowhere else."""
+    import urllib.request
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def http_burst(base: str, windows) -> list:
+    """The windows posted at once, one client thread each: even ones as raw
+    ``application/octet-stream`` with ``X-Frames-Shape``, odd ones as JSON
+    ``frames_b64``. Returns (status, caption or error, seconds) per
+    window, the seconds from sending to the whole answer."""
+    import base64
+    import threading
+    import urllib.error
+    import urllib.request
+    opener = http_client()
+    reqs = []
+    for i, w in enumerate(windows):
+        if i % 2 == 0:
+            reqs.append(urllib.request.Request(
+                base + "/v1/caption", data=w.tobytes(), method="POST",
+                headers={"Content-Type": "application/octet-stream",
+                         "X-Frames-Shape": ",".join(map(str, w.shape))}))
+        else:
+            reqs.append(urllib.request.Request(
+                base + "/v1/caption", method="POST",
+                headers={"Content-Type": "application/json"},
+                data=json.dumps({
+                    "frames_b64": base64.b64encode(w.tobytes()).decode(),
+                    "shape": list(w.shape)}).encode()))
+    out = [None] * len(reqs)
+
+    def post(i):
+        t0 = time.perf_counter()
+        try:
+            with opener.open(reqs[i], timeout=300) as r:
+                code, body = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.loads(e.read())
+        out[i] = (code, body.get("caption", body.get("error")),
+                  time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def decodable(row, tok) -> int:
+    """How many of a row's generated ids the synthetic vocabulary holds as
+    a word or piece (not a special id, an ``[unused_*]`` filler or an id
+    past its 2048 entries, which decodes to ``[UNK]``)."""
+    return sum(1 for t in row[1:]
+               if t not in tok._special_ids
+               and not tok.inv_vocab.get(int(t), "[UNK]").startswith(
+                   ("[unused_", "[UNK]")))
+
+
+def server_run(student, windows_cpu, dev, beam: int) -> dict:
+    """``BatchCaptionServer`` (max_batch 8, one bucket of 8, the synthetic
+    tokenizer) behind ``CaptionHTTPFrontend`` on 127.0.0.1, port 0. Gates:
+    the 8 windows submitted at once from 8 streams form one batch whose
+    rows equal the direct step's on the same batch, truncated at SEP, bit
+    for bit; then HTTP_ROUNDS bursts of the 8 windows over HTTP (4 raw, 4
+    JSON) all answer 200 with the in-process caption; /healthz and
+    /v1/stats answer. Every pad row is a zero window, and a row's result
+    does not depend on the rest of its batch at a fixed shape, so any
+    batch the bursts form must give the in-process texts."""
+    import numpy as np
+    from rtvc_tpu_torch.serving import (BatchCaptionServer, make_caption_step,
+                                        truncate_at_sep)
+    from rtvc_tpu_torch.serving_http import CaptionHTTPFrontend
+    from rtvc_tpu_torch.tokenization import BertWordPieceTokenizer
+
+    tok = BertWordPieceTokenizer()
+    wins = windows_cpu.numpy()
+    direct = make_caption_step(student, max_len=MAX_LEN, beam=beam)(
+        windows_cpu.to(dev)).cpu().numpy()
+    t0 = time.perf_counter()
+    server = BatchCaptionServer(
+        student, tok, max_batch=WINDOWS, buckets=(WINDOWS,),
+        max_wait_ms=SERVER_WAIT_MS, max_len=MAX_LEN, beam=beam,
+        frame_shape=FRAME_HW + (3,), window=FRAMES)
+    warm_s = time.perf_counter() - t0
+    try:
+        futs = [server.submit(w, stream_id=f"cam{i}")
+                for i, w in enumerate(wins)]
+        rows = [f.tokens(timeout=300) for f in futs]
+        texts = [f.result(timeout=300) for f in futs]
+        sizes = list(server.batch_sizes)
+        if sizes != [WINDOWS]:
+            raise AssertionError(f"8 submits at once formed batches {sizes}")
+        bad = [i for i, (r, d) in enumerate(zip(rows, direct))
+               if not np.array_equal(r, truncate_at_sep(d))]
+        if bad:
+            raise AssertionError(f"served rows {bad} differ from the direct "
+                                 f"step's")
+        with CaptionHTTPFrontend(server, host="127.0.0.1", port=0) as fe:
+            base = f"http://127.0.0.1:{fe.port}"
+            with http_client().open(base + "/healthz", timeout=60) as r:
+                health = (r.status, json.loads(r.read()))
+            answers, walls = [], []
+            for _ in range(HTTP_ROUNDS):
+                t0 = time.perf_counter()
+                answers.append(http_burst(base, wins))
+                walls.append(time.perf_counter() - t0)
+            with http_client().open(base + "/v1/stats", timeout=60) as r:
+                http_stats = (r.status, json.loads(r.read()))
+        stats = server.stats()
+    finally:
+        server.close()
+    if health != (200, {"ok": True}) or http_stats[0] != 200:
+        raise AssertionError(f"/healthz {health}, /v1/stats {http_stats}")
+    wrong = [(n, i, a[:2]) for n, burst in enumerate(answers)
+             for i, a in enumerate(burst) if a[:2] != (200, texts[i])]
+    if wrong:
+        raise AssertionError(f"HTTP answers (round, window, (status, "
+                             f"caption)) differ from in-process: {wrong}")
+    lat = sorted(a[2] for burst in answers for a in burst)
+    by_format = {fmt: sorted(a[2] * 1e3 for burst in answers
+                             for i, a in enumerate(burst) if i % 2 == odd)
+                 for fmt, odd in (("raw", 0), ("json", 1))}
+    result = dict(
+        warmup_s=warm_s, batch_sizes=list(server.batch_sizes),
+        stats=stats, http_requests=len(lat),
+        http_latency_p50_ms=lat[len(lat) // 2] * 1e3,
+        http_latency_p95_ms=lat[int(len(lat) * 0.95)] * 1e3,
+        http_latency_ms_by_format=by_format,
+        http_windows_per_s=len(lat) / sum(walls), http_round_s=walls,
+        captions=texts,
+        decodable_ids=[decodable(r, tok) for r in rows],
+        generated_ids=[len(r) - 1 for r in rows])
+    mode = f"beam={beam}" if beam else "greedy"
+    log(f"  server {mode:7s} warm-up {warm_s:.2f} s; in-process batch of 8 "
+        f"rows equal the direct step's; {len(lat)} HTTP requests "
+        f"({HTTP_ROUNDS} bursts of 8, half raw, half JSON) all 200 with the "
+        f"in-process captions; batches {result['batch_sizes']}")
+    log(f"  server {mode:7s} stats() {json.dumps(stats)}")
+    log(f"  server {mode:7s} HTTP latency p50 {result['http_latency_p50_ms']:.1f}"
+        f" ms p95 {result['http_latency_p95_ms']:.1f} ms, "
+        f"{result['http_windows_per_s']:.2f} windows/s over the bursts; "
+        f"median raw {by_format['raw'][len(by_format['raw']) // 2]:.1f} ms,"
+        f" JSON {by_format['json'][len(by_format['json']) // 2]:.1f} ms")
+    log(f"  server {mode:7s} synthetic-vocab words per row (of "
+        f"{result['generated_ids']} generated ids; random weights pick ids "
+        f"across all 30522, the 2048-entry vocabulary holds few: the rest "
+        f"print as [UNK] or [unused_*]): {result['decodable_ids']}")
+    for i in range(3):
+        log(f"  server {mode:7s} window {i} caption {texts[i][:120]!r}")
+    return result
+
+
+def serve_phase(dev, student_f32, student, windows_cpu) -> dict:
+    """The beam step (k = SERVE_BEAM), default and ``vocab_int8``, at batch 1
+    and 8 with its launch counts, the f32 beam's card-vs-CPU report, then
+    the server in greedy and beam mode behind its HTTP front."""
+    import torch
+    from rtvc_tpu_torch.config import cfg
+
+    windows = windows_cpu.to(dev)
+    vocab, cls_id = cfg.student.vocab_size, cfg.student.cls_token_id
+    steps = MAX_LEN - 1      # decode_step calls of one beam step
+    calls = WINDOWS + 1      # 8 at batch 1, one at batch 8
+    result = {"beam": SERVE_BEAM, "launches": {}}
+    for mode, vocab_int8 in (("default", False), ("vocab_int8", True)):
+        rows1, rows8, ms1, ms8, launched = serve(student, windows, vocab_int8,
+                                                 beam=SERVE_BEAM)
+        for rows in (rows1, rows8):
+            check_rows(rows, vocab, cls_id, width=MAX_LEN)
+        same = float((rows1 == rows8).all(dim=1).float().mean())
+        log(f"  beam {SERVE_BEAM} {mode:10s} launches {launched}")
+        log(f"  beam {SERVE_BEAM} {mode:10s} ms/window batch 1 {ms1:.3f}  "
+            f"batch 8 {ms8:.3f}  batch-1 rows equal to batch-8 rows: "
+            f"{same:.3f}")
+        for i, row in enumerate(rows1.tolist()[:2]):
+            log(f"  beam {SERVE_BEAM} {mode:10s} window {i} tokens {row}")
+        need = ["window_attention", "layer_norm"] + (
+            ["w8_matmul"] if vocab_int8 else [])
+        missing = [k for k in need if launched[k] == 0]
+        if missing:
+            raise AssertionError(f"{mode} beam step never launched {missing}")
+        # the decoder's three norms a layer at each of the fixed steps
+        dec_norms = 3 * cfg.student.num_decoder_layers * steps * calls
+        if launched["layer_norm"] < dec_norms:
+            raise AssertionError(f"{mode} beam step: {launched['layer_norm']}"
+                                 f" K2 launches, fewer than the decoder's "
+                                 f"{dec_norms}")
+        if vocab_int8 and launched["w8_matmul"] != steps * calls:
+            raise AssertionError(f"vocab_int8 beam step: "
+                                 f"{launched['w8_matmul']} K3 launches, not "
+                                 f"one a step ({steps * calls})")
+        for k, n in launched.items():
+            result["launches"][k] = result["launches"].get(k, 0) + n
+        result[f"beam_{mode}"] = dict(
+            ms_per_window_b1=ms1, ms_per_window_b8=ms8, b1_equals_b8=same,
+            rows_b1=rows1.tolist())
+    result["f32_beam_first_token_divergence"] = f32_beam_report(
+        student_f32, windows_cpu, dev)
+    log(f"  beam {SERVE_BEAM} first-token divergence, f32 card vs f32 cpu: "
+        f"{result['f32_beam_first_token_divergence']:.3f} (reported, not "
+        f"gated)")
+    result["server"] = {
+        "greedy": server_run(student, windows_cpu, dev, 0),
+        f"beam{SERVE_BEAM}": server_run(student, windows_cpu, dev,
+                                        SERVE_BEAM)}
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the frozen teacher
 # ---------------------------------------------------------------------------
 
 def timed_run(label: str, fn):
@@ -1158,7 +1427,7 @@ def teacher_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the distillation train step
+# phase 7: the distillation train step
 # ---------------------------------------------------------------------------
 
 # the student's distillation heads: kl + ce leave them without a gradient
@@ -1392,8 +1661,15 @@ def main(argv=None) -> int:
     log(f"[slice] full-width student, caption steps (kernel phase took "
         f"{time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    sl = slice_phase(dev)
-    log(f"[teacher] full-width GIT-Large teacher, bf16 (slice phase took "
+    student_f32, student, windows_cpu = slice_inputs(dev)
+    sl = slice_phase(dev, student_f32, student, windows_cpu)
+    log(f"[serve] full-width student, beam {SERVE_BEAM} and the HTTP server "
+        f"(slice phase took {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    sv = serve_phase(dev, student_f32, student, windows_cpu)
+    del student_f32, student, windows_cpu
+    torch.cuda.empty_cache()
+    log(f"[teacher] full-width GIT-Large teacher, bf16 (serve phase took "
         f"{time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     te = teacher_phase(dev)
@@ -1407,8 +1683,9 @@ def main(argv=None) -> int:
     # its headline bf16 case (the main path's heaviest, but K2 at the
     # decode's [8, 576], its most launched shape, and K3 with the cold L2
     # its bound assumes, its warm time beside them); its launches on the
-    # main paths (K8 has no caller there: its launches are those of
-    # flash_attention's gradient in the kernel phase)
+    # main paths, the beam steps of the serve phase included (K8 has no
+    # caller there: its launches are those of flash_attention's gradient
+    # in the kernel phase)
     primary = {"window_attention": "bfloat16 stage1 b8",
                "layer_norm": "bfloat16 [8,576]",
                "w8_matmul": "bfloat16 cold L2 M=8",
@@ -1423,8 +1700,8 @@ def main(argv=None) -> int:
         mine = [r for r in records if r["name"] == name]
         head = next(r for r in mine if r["case"].startswith(primary[name]))
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   launches=sl["launches"][name] + te["launches"][name]
-                   + tr["launches"][name],
+                   launches=sl["launches"][name] + sv["launches"][name]
+                   + te["launches"][name] + tr["launches"][name],
                    max_abs_err=max(r["max_abs_err"] for r in mine),
                    ms=head["ms"], plain_ms=head["plain_ms"],
                    bound_ms=head["bound_us"] / 1e3,
@@ -1446,7 +1723,8 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(device=smi, sass=sass, kernels=kernels,
-                           cases=records, slice=sl, teacher=te, train=tr), f,
+                           cases=records, slice=sl, serve=sv, teacher=te,
+                           train=tr), f,
                       indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,6 +1,6 @@
-"""rtvc_tpu_torch — the caption step, the frozen GIT-Large teacher and the
-distillation train step of ``rtvc_tpu`` in PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper (``sm_90a``).
+"""rtvc_tpu_torch — the caption step and its serving surface, the frozen
+GIT-Large teacher and the distillation train step of ``rtvc_tpu`` in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (``sm_90a``).
 
 The JAX package ``rtvc_tpu`` is the reference; every module here has a
 counterpart of the same name there:
@@ -16,8 +16,18 @@ counterpart of the same name there:
 - ``ops.int8_gemm``     ➜ ``rtvc_tpu/ops/int8_gemm.py`` (kernels K3, K7)
 - ``models.*``          ➜ ``rtvc_tpu/models/*`` (TinyViT, student, CLIP
                           ViT, GIT teacher, weight bridge)
-- ``decode``            ➜ ``rtvc_tpu/decode.py`` (greedy, teacher beam)
-- ``serving``           ➜ ``rtvc_tpu/serving.py`` (the caption step)
+- ``decode``            ➜ ``rtvc_tpu/decode.py`` (greedy, student beam,
+                          teacher beam)
+- ``serving``           ➜ ``rtvc_tpu/serving.py`` (the caption step, greedy
+                          or beam; ``BatchCaptionServer``; loading and the
+                          CLI demo)
+- ``serving_http``      ➜ ``rtvc_tpu/serving_http.py`` (the HTTP front)
+- ``real_time_inference`` ➜ ``rtvc_tpu/real_time_inference.py``
+- ``tokenization``      ➜ ``rtvc_tpu/tokenization/`` (copied: pure Python)
+- ``data.io``           ➜ ``rtvc_tpu/data/io.py`` (checkpoints as
+                          ``torch.save``d state dicts, the meta sidecar,
+                          the distillation-head strip)
+- ``utils.profiling``   ➜ ``rtvc_tpu/utils/profiling.py`` (``StepTimer``)
 - ``distill``           ➜ ``rtvc_tpu/distill.py`` (the six losses)
 - ``train``             ➜ ``rtvc_tpu/train.py`` (the train step, Adam, the
                           plateau scheduler)
@@ -27,7 +37,8 @@ by op on a card; nor has ``ops.dropout``, the train step's random draws
 from an explicit CPU ``torch.Generator``. Kernels live in ``csrc/`` and are compiled by ``_build``
 with ``nvcc`` at their first launch. A wrapper given CPU tensors runs its
 plain PyTorch version; given CUDA tensors it launches the kernel or raises.
-This package imports neither jax, flax nor cv2.
+This package imports neither jax, flax nor, at import time, cv2 (the
+JPEG/PNG codec and the video loop import it where they run).
 """
 
 __version__ = "0.1.0"

@@ -16,8 +16,8 @@ jax. A test holds every field here equal to its JAX counterpart:
   ``plateau_*`` scheduler and ``grad_accum_steps``;
 - :class:`Config` ➜ the fields of ``rtvc_tpu.config.Config`` the student,
   the teacher and the train step are built from: ``student``, ``teacher``,
-  ``train``, ``tpu.compute_dtype``, ``tpu.quantize_teacher`` and
-  ``data.num_frames``.
+  ``train``, ``tpu.compute_dtype``, ``tpu.quantize_teacher``,
+  ``data.num_frames`` and ``seed`` (the serving student's random init).
 """
 
 from __future__ import annotations
@@ -134,6 +134,7 @@ class Config:
     compute_dtype: str = "bfloat16"      # TpuConfig.compute_dtype
     quantize_teacher: bool = False       # TpuConfig.quantize_teacher
     num_frames: int = 6                  # DataConfig.num_frames
+    seed: int = 5                        # Config.seed
 
     @property
     def dtype(self) -> torch.dtype:

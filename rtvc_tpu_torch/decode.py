@@ -1,11 +1,11 @@
-"""Greedy captioning over the student's KV cache, and the teacher's beam
-search.
+"""Greedy and beam captioning over the student's KV cache, and the
+teacher's beam search.
 
-Counterpart of ``student_greedy``, ``teacher_beam`` and
+Counterpart of ``student_greedy``, ``student_beam``, ``teacher_beam`` and
 ``teacher_kd_targets`` in ``rtvc_tpu/decode.py``. Each JAX
-``lax.while_loop`` becomes a Python loop over the model's ``decode_step``
-with preallocated caches; each stop test reads one boolean back from the
-device per token.
+``lax.while_loop`` or ``fori_loop`` becomes a Python loop over the model's
+``decode_step`` with preallocated caches; each stop test reads one boolean
+back from the device per token.
 
 ``student_greedy`` (reference model.py:156-187) runs the student with
 caches of ``1 + max_len`` slots. The semantics are the reference's:
@@ -15,6 +15,11 @@ caches of ``1 + max_len`` slots. The semantics are the reference's:
   full-recompute decoder masks ``y == 0``;
 - decoding stops early only when every row emits SEP at the same step;
   rows that ended earlier keep generating.
+
+``student_beam`` is the reference's EOS-free beam (model.py:189-317) in
+JAX's fixed-shape form: caches of ``max_len`` slots, a top-k over the raw
+logits of each beam's row, a ``k·k`` candidate table in beam-major order,
+ties lowest index first as ``jax.lax.top_k`` breaks them.
 
 ``teacher_beam`` is GIT's beam search as the reference modified it
 (model.py:465-678), without sampling: beam 4, 15 steps, length penalty
@@ -60,7 +65,76 @@ def student_greedy(model: StudentCandidateV1, frames: torch.Tensor,
 
 
 def _gather_cache(caches: List[Cache], rows: torch.Tensor) -> List[Cache]:
+    """Fresh caches holding ``rows`` of each: advanced indexing copies, so a
+    later in-place write never reaches a row another beam still reads."""
     return [{k: v[rows] for k, v in cache.items()} for cache in caches]
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values of each row of ``x`` and their indices,
+    equal values lowest index first, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` promises no order among ties)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def beam_select(raw: torch.Tensor, scores: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step of :func:`student_beam`'s selection: raw float32 logits
+    ``[B·k, V]`` (row ``b·k + beam``) and the beams' scores ``[B, k]`` →
+    (the new scores, the beam each new beam extends, the word it appends),
+    each ``[B, k]``. The top k words of each row by raw logit, normalised
+    by the row's logsumexp (log_softmax is a per-row shift, so the words,
+    their order and their scores are those of a top-k over log_softmax),
+    plus the beam's score, pooled into a ``k·k`` table in beam-major order,
+    of which the top k survive."""
+    b, k = scores.shape
+    top_raw, top_words = top_k(raw, k)                      # [B·k, k]
+    lse = torch.logsumexp(raw, dim=-1, keepdim=True)
+    cand_scores = (scores[:, :, None]
+                   + (top_raw - lse).reshape(b, k, k)).reshape(b, k * k)
+    best_scores, best_idx = top_k(cand_scores, k)           # [B, k]
+    sel_words = torch.gather(top_words.reshape(b, k * k), 1, best_idx)
+    return best_scores, best_idx // k, sel_words
+
+
+@torch.inference_mode()
+def student_beam(model: StudentCandidateV1, frames: torch.Tensor,
+                 max_len: int = 10, k: int = 3,
+                 vocab_w8: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """Beam captioning (reference model.py:189-317), EOS-free: frames
+    ``[B, F, H, W, 3]`` → int32 ``[B, max_len]``, CLS at column 0, the
+    highest-scoring beam after ``max_len - 1`` words. No length penalty, no
+    EOS handling, no pad mask (unlike greedy). ``vocab_w8`` sends the vocab
+    projection through K3, as in :func:`student_greedy`."""
+    _, memory = model.forward_image_enc(frames)
+    b = frames.shape[0]
+    dev = memory.device
+    caches = model.init_cache(b, max_len, memory)
+    cls = torch.full((b,), model.cls_token_id, dtype=torch.int32, device=dev)
+    logits0, caches = model.decode_step(cls, 0, caches, None,
+                                        vocab_w8=vocab_w8)
+    scores, top_idx = top_k(torch.log_softmax(logits0.float(), dim=-1), k)
+
+    seqs = torch.zeros((b, k, max_len), dtype=torch.int32, device=dev)
+    seqs[:, :, 0] = model.cls_token_id
+    seqs[:, :, 1] = top_idx.to(torch.int32)
+    # one cache row per beam, B-major: row b·k + beam
+    caches = _gather_cache(
+        caches, torch.arange(b, device=dev).repeat_interleave(k))
+    batch_rows = torch.arange(b, device=dev)[:, None] * k
+    for step in range(2, max_len):
+        logits, caches = model.decode_step(
+            seqs[:, :, step - 1].reshape(b * k), step - 1, caches, None,
+            vocab_w8=vocab_w8)
+        scores, sel_beams, sel_words = beam_select(logits.float(), scores)
+        seqs = torch.gather(seqs, 1, sel_beams[:, :, None].expand(-1, -1,
+                                                                  max_len))
+        seqs[:, :, step] = sel_words.to(torch.int32)
+        caches = _gather_cache(caches, (batch_rows + sel_beams).reshape(-1))
+    best = torch.argmax(scores, dim=-1)
+    return seqs[torch.arange(b, device=dev), best]
 
 
 class TeacherBeamOutput(NamedTuple):

@@ -315,6 +315,24 @@ def student_from_config(cfg: Config, input_size: int = 224,
         teacher_hidden=cfg.teacher.hidden_size).to(device)
 
 
+def student_matching_checkpoint(cfg: Config, ckpt_path: str,
+                                input_size: int = 224,
+                                device="cuda") -> StudentCandidateV1:
+    """:func:`student_from_config`, but the GELU variant recorded at save
+    time (the checkpoint's ``.meta.json`` sidecar, ``data.io``) overrides
+    the config: weights trained with the exact erf GELU must not run under
+    the tanh default. Without a sidecar the config wins."""
+    import dataclasses
+
+    from ..data.io import checkpoint_meta
+
+    g = checkpoint_meta(ckpt_path).get("gelu_approximate")
+    if g is not None and bool(g) != cfg.student.gelu_approximate:
+        cfg = dataclasses.replace(cfg, student=dataclasses.replace(
+            cfg.student, gelu_approximate=bool(g)))
+    return student_from_config(cfg, input_size=input_size, device=device)
+
+
 @torch.no_grad()
 def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter and BatchNorm statistic from ``generator``:

@@ -1,0 +1,62 @@
+"""Step timers: ``StepTimer`` of ``rtvc_tpu/utils/profiling.py``.
+
+``stop(sync_on=...)`` waits for the card before it reads the clock
+(``torch.cuda.synchronize`` on the device of each CUDA tensor in
+``sync_on``), as JAX's waits on ``block_until_ready``. ``profile_trace``
+(a ``jax.profiler`` region in JAX) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Any, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+
+def _synchronize(tree: Any) -> None:
+    """``torch.cuda.synchronize`` on the device of every CUDA tensor in a
+    tensor, or a list, tuple or dict of them."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            torch.cuda.synchronize(tree.device)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _synchronize(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _synchronize(v)
+
+
+class StepTimer:
+    def __init__(self, name: str = "step"):
+        self.name = name
+        self.durations: List[float] = []
+        self._t0: Optional[float] = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, sync_on=None) -> float:
+        if sync_on is not None:
+            _synchronize(sync_on)
+        dt = time.perf_counter() - self._t0
+        self.durations.append(dt)
+        return dt
+
+    @contextlib.contextmanager
+    def measure(self, sync_on_result=None) -> Iterator[None]:
+        self.start()
+        yield
+        self.stop(sync_on_result)
+
+    def summary(self, skip_warmup: int = 1) -> dict:
+        d = np.asarray(self.durations[skip_warmup:] or self.durations)
+        return {
+            f"{self.name}_mean_s": float(d.mean()),
+            f"{self.name}_p50_s": float(np.percentile(d, 50)),
+            f"{self.name}_p90_s": float(np.percentile(d, 90)),
+            f"{self.name}_min_s": float(d.min()),
+        }

@@ -62,11 +62,13 @@ def randomize(variables, seed: int = 1):
     return walk(variables)
 
 
-def jax_student(gelu_approximate: bool = True):
-    """Tiny JAX student (test_models.tiny_student) with every head built."""
+def jax_student(gelu_approximate: bool = True, size: int = SIZE):
+    """Tiny JAX student (test_models.tiny_student) with every head built,
+    for frames of ``size`` pixels (the relative-position tables depend on
+    the stage maps' sizes)."""
     enc = dataclasses.replace(TINY_ENC, gelu_approximate=gelu_approximate)
     model = tiny_student(encoder_config=enc, dropout=0.0)
-    x = jnp.zeros((1, FRAMES, SIZE, SIZE, 3))
+    x = jnp.zeros((1, FRAMES, size, size, 3))
     y = jnp.array([[model.cls_token_id, 5]], jnp.int32)
     # one jitted init: op-by-op eager init compiles each op on its own
     variables = jax.jit(lambda key: model.init(
@@ -81,14 +83,14 @@ def port_encoder_config(gelu_approximate: bool) -> pconfig.TinyViTConfig:
         drop_path_rate=0.0, gelu_approximate=gelu_approximate)
 
 
-def port_student(variables, gelu_approximate: bool = True
-                 ) -> StudentCandidateV1:
+def port_student(variables, gelu_approximate: bool = True,
+                 input_size: int = SIZE) -> StudentCandidateV1:
     """The port's tiny student carrying the JAX variables."""
     model = StudentCandidateV1(
         d_model=32, n_head=4, d_ffn=64, num_decoder_layers=2,
         vocab_size=211, max_pos_len=64,
         encoder_config=port_encoder_config(gelu_approximate),
-        input_size=SIZE, num_frames=FRAMES, teacher_visual_dim=32,
+        input_size=input_size, num_frames=FRAMES, teacher_visual_dim=32,
         teacher_num_tokens=10, teacher_hidden=16)
     sd = student_state_dict_from_jax(variables["params"],
                                      variables["batch_stats"])
@@ -251,3 +253,4 @@ def test_config_defaults_equal_jax():
     assert pcfg.compute_dtype == jcfg.tpu.compute_dtype
     assert pcfg.quantize_teacher == jcfg.tpu.quantize_teacher
     assert pcfg.num_frames == jcfg.data.num_frames
+    assert pcfg.seed == jcfg.seed

@@ -120,7 +120,13 @@ def test_port_imports_no_jax_flax_or_cv2():
                "rtvc_tpu_torch.serving", "rtvc_tpu_torch.profile_teacher",
                "rtvc_tpu_torch.profile_w8", "rtvc_tpu_torch.profile_w8a8",
                "rtvc_tpu_torch.ops.dropout", "rtvc_tpu_torch.ops.depthwise",
-               "rtvc_tpu_torch.distill", "rtvc_tpu_torch.train"]
+               "rtvc_tpu_torch.distill", "rtvc_tpu_torch.train",
+               "rtvc_tpu_torch.tokenization",
+               "rtvc_tpu_torch.tokenization.vocab",
+               "rtvc_tpu_torch.tokenization.wordpiece",
+               "rtvc_tpu_torch.data.io", "rtvc_tpu_torch.utils.profiling",
+               "rtvc_tpu_torch.serving_http",
+               "rtvc_tpu_torch.real_time_inference"]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
