@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's caption step and its server, frozen teacher
-and distillation train step once on an NVIDIA GPU.
+"""Drive the PyTorch port's caption step and its server, its evaluation
+path, frozen teacher and distillation train step once on an NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -22,8 +22,8 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    its plain PyTorch version on the card and timed against it and its
    library yardstick, each as a replayed CUDA graph of back-to-back calls
    (bf16 K8's yardstick, SDPA's backward, the median of three); and the
-   edge cases of K7, K9 and the bf16 tensor-core K1, K4/K5 and K8, for
-   correctness only. Then K8's one caller, the gradient
+   edge cases of K7, K9 and the bf16 tensor-core K1, K4/K5 and K8, and K1
+   and K2 at the eval phase's ragged last batch, for correctness only. Then K8's one caller, the gradient
    of ``flash_attention`` through autograd, runs once at the joint shape
    with dropout, launch counts reset before and read after;
 4. slice: the full-width student (random weights from a seeded generator,
@@ -45,7 +45,23 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    frames) must all answer 200 with the in-process captions. The
    JPEG/PNG frame path needs ``cv2``, which the card's machine lacks: it
    is tested on the CPU (tests/test_torch_serving_http.py), not here;
-6. teacher: the full-width GIT-Large teacher (CLIP ViT-L/14 + the 6-layer
+6. eval: an MSRVTT-format test split in a temporary directory (20 seeded
+   .npy clips of 12 frames at 320×240, 20 captions a clip from the
+   synthetic vocabulary's words, encoded by the port's tokenizer). The bf16
+   serving student, saved with ``save_checkpoint``, is scored by ``python
+   -m rtvc_tpu_torch.evaluate --ckpt ... --out ...`` (greedy to max_len
+   45, batches of 8, 8 and 4, launch counts reset before and read after):
+   the scores JSON must hold JAX's keys, all finite, the preds JSON each
+   clip once; ``make_eval_step``'s rows on each loader batch must equal
+   ``make_caption_step``'s on the same uint8 clips bit for bit, and the
+   preds texts their decode; K1 must launch 10 times a TinyViT forward, K2
+   20 times a forward and 6 a decode step, no other kernel. Then
+   ``evaluate_checkpoint`` greedy and with beam 3 (the same gates), timed
+   with the loader; ``pruning.main`` at 0.5 (exactly round(0.5 · total)
+   prunable elements zero) and ``pruning_test.test`` on the pruned checkpoint (K1
+   and K2 launched); the first batch's f32 greedy rows, card vs CPU,
+   reported;
+7. teacher: the full-width GIT-Large teacher (CLIP ViT-L/14 + the 6-layer
    joint decoder, random weights from a seeded generator, bfloat16) runs
    ``forward_output_logits`` on 8 preprocessed windows with 40-token
    captions and four encoder taps, then the same on its W8A8 copy
@@ -56,7 +72,7 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    same input. Then, in float32 with TF32 off, a depth-cut teacher (2 CLIP
    blocks, 2 joint layers, full widths) on the card is held against the
    same model on the CPU;
-7. train: the full-width student (bfloat16 compute over float32 master
+8. train: the full-width student (bfloat16 compute over float32 master
    weights) and the full-width teacher run 5 steps of the default
    ``make_train_step`` (kl + ce, dropout 0.3, DropPath, Adam at lr 1e-4)
    on 8 preprocessed windows with 40-token captions, printing each step's
@@ -130,6 +146,14 @@ BEAM_BATCH, BEAMS, BEAM_STEPS = 2, 4, 15
 SERVE_BEAM = 3                 # the student beam's k in the serve phase
 SERVER_WAIT_MS = 50.0          # the server's linger: 8 submits form 1 batch
 HTTP_ROUNDS = 3                # bursts of 8 concurrent HTTP requests
+# the eval phase's MSRVTT-format test split: 20 clips of 12 frames at
+# MSRVTT's 320x240, 20 captions a clip; batches of 8, 8 and 4
+EVAL_CLIPS, EVAL_CLIP_FRAMES, EVAL_HW, EVAL_CAPTIONS = 20, 12, (240, 320), 20
+EVAL_MAX_LEN = 45              # the 40-token caption bucket + max_len_extra 5
+EVAL_BEAM = 3
+PRUNE_RATIO = 0.5
+EVAL_KEYS = {"corpus_bleu4", "Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4",
+             "METEOR", "ROUGE_L", "CIDEr"}
 
 KERNELS = {
     "window_attention": ("rtvc_tpu_torch/csrc/window_attention_sm90.cu",
@@ -383,6 +407,18 @@ def kernel_cases(dev, g):
                     (q, k, v, rand(h, n, n, scale=0.5)),
                     dict(softmax_in_input_dtype=True), Y.window_work,
                     Y.window_library)
+        # the eval phase's ragged last batch, 4 clips of 6 frames, at each
+        # stage (correctness only)
+        for stage, (nw, h, n) in enumerate(
+                ((16, 6, 49), (1, 12, 196), (1, 18, 49)), start=1):
+            b = 4 * FRAMES * nw
+            add("window_attention",
+                f"{dn} edge: eval b4 stage{stage} [{b},{h},{n},32]", 10,
+                attention.window_attention, attention.window_attention_plain,
+                tuple(rand(b, h, n, 32, dtype=dtype) for _ in range(3))
+                + (rand(h, n, n, scale=0.5),),
+                dict(softmax_in_input_dtype=True), Y.window_work,
+                Y.window_library)
         if dtype == torch.bfloat16:
             # the tensor-core K1's edges, in both score modes: a window
             # batch that divides no grid, N = 16 (one 16-key chunk), N = 64
@@ -416,8 +452,9 @@ def kernel_cases(dev, g):
         # [200, 576] earlier records quoted; then rows of mean 64 and
         # spread 2, where a one-pass variance would lose the spread; then
         # the edges (correctness only): 7 rows of 192 (a warp's last group
-        # of lanes past the last row), and widths 40 and 100, which take
-        # the generic kernel (100 bf16 values are no 16-byte multiple)
+        # of lanes past the last row), widths 40 and 100, which take the
+        # generic kernel (100 bf16 values are no 16-byte multiple), and the
+        # eval phase's ragged last batch of 4, greedy and beam 3
         tiny = 8 * FRAMES
         for label, rows, width, mean, reps in (
                 ("", 1, 576, 0.0, 50), ("", 8, 576, 0.0, 50),
@@ -428,7 +465,9 @@ def kernel_cases(dev, g):
                 ("", tiny * 7 * 7, 576, 0.0, 50),
                 ("mean 64 ", tiny * 7 * 7, 576, 64.0, 50),
                 ("edge: ", 7, 192, 0.0, 10), ("edge: ", 5, 40, 0.0, 10),
-                ("edge: ", 9, 100, 0.0, 10)):
+                ("edge: ", 9, 100, 0.0, 10),
+                ("edge: eval b4 ", 4, 576, 0.0, 10),
+                ("edge: eval beam b4 ", 4 * SERVE_BEAM, 576, 0.0, 10)):
             add("layer_norm", f"{dn} {label}[{rows},{width}]", reps,
                 layernorm.layer_norm, layernorm.layer_norm_plain,
                 ((rand(rows, width, scale=2.0) + mean).to(dtype),
@@ -1223,7 +1262,299 @@ def serve_phase(dev, student_f32, student, windows_cpu) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the frozen teacher
+# phase 6: the evaluation path
+# ---------------------------------------------------------------------------
+
+def write_eval_tree(root: str) -> None:
+    """An MSRVTT-format test split under ``root``, in the config's relative
+    layout, from numpy, csv, json and pickle only: EVAL_CLIPS clips of
+    EVAL_CLIP_FRAMES uint8 BGR frames at MSRVTT's 320×240 (smooth random
+    scenes plus pixel noise, each clip at its own brightness), and
+    EVAL_CAPTIONS captions a clip of 6-12 words drawn from the synthetic
+    vocabulary's whole words, encoded by the port's tokenizer
+    (``encoded_captions.pkl``) and written raw to ``MSR_VTT.json``."""
+    import csv
+    import os
+    import pickle
+    import numpy as np
+    from rtvc_tpu_torch.config import cfg
+    from rtvc_tpu_torch.tokenization import (BertWordPieceTokenizer,
+                                             encode_caption)
+    rng = np.random.default_rng(SEED + 9)
+    tok = BertWordPieceTokenizer()
+    words = sorted(t for t in tok.vocab if t.isalpha() and t.islower())
+    data = cfg.data
+    for path in (data.videos_path, os.path.dirname(data.captions_path),
+                 os.path.dirname(data.annotation_path)):
+        os.makedirs(os.path.join(root, path), exist_ok=True)
+    h, w = EVAL_HW
+    rows, encoded, cap_id = [], {}, 0
+    for i in range(EVAL_CLIPS):
+        vid = f"video{7000 + i}"
+        coarse = rng.random((EVAL_CLIP_FRAMES, h // 40, w // 40, 3))
+        scene = coarse.repeat(40, axis=1).repeat(40, axis=2)
+        noise = rng.random((EVAL_CLIP_FRAMES, h, w, 3))
+        level = 0.3 + 0.7 * i / (EVAL_CLIPS - 1)
+        clip = ((0.8 * scene + 0.2 * noise) * level * 255).astype(np.uint8)
+        np.save(os.path.join(root, data.videos_path, vid + ".npy"), clip)
+        for _ in range(EVAL_CAPTIONS):
+            caption = " ".join(rng.choice(words,
+                                          size=int(rng.integers(6, 13))))
+            rows.append({"image_id": vid, "id": cap_id, "caption": caption,
+                         "split": "test"})
+            encoded[cap_id] = encode_caption(caption, tok)
+            cap_id += 1
+    with open(os.path.join(root, data.captions_path), "w", newline="") as f:
+        out = csv.DictWriter(f, fieldnames=["image_id", "id", "caption",
+                                            "split"])
+        out.writeheader()
+        out.writerows(rows)
+    with open(os.path.join(root, data.encoded_caption_ids), "wb") as f:
+        pickle.dump(encoded, f)
+    with open(os.path.join(root, data.annotation_path), "w") as f:
+        json.dump({"annotations": [
+            {"image_id": r["image_id"], "caption": r["caption"],
+             "id": r["id"]} for r in rows]}, f)
+
+
+def check_scores(label: str, scores: dict) -> None:
+    if set(scores) != EVAL_KEYS:
+        raise AssertionError(f"{label}: score keys {sorted(scores)}")
+    bad = {k: v for k, v in scores.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{label}: non-finite scores {bad}")
+
+
+def eval_launches(label: str, launched: dict, forwards: int,
+                  decode_calls: int) -> None:
+    """K1 10 a TinyViT forward, K2 20 a forward and 6 a decode step (the
+    decoder's 3 norms a layer), no other kernel."""
+    want = {name: 0 for name in launched}
+    want.update(window_attention=10 * forwards,
+                layer_norm=20 * forwards + 6 * decode_calls)
+    check_launches(label, launched, want)
+
+
+def eval_rows_gate(student, loader, tok, preds, dev) -> tuple:
+    """The eval's own decode (``train.make_eval_step``) on each loader
+    batch against ``make_caption_step``'s on the same clips' uint8 frames,
+    as ``load_clip_frames`` picks them, in the same batches: equal bit for
+    bit. The preds file must name each test clip once and hold the
+    tokenizer's decode of those rows. Returns (the rows per batch, each
+    batch's ms, the decode_step calls per batch, the first batch's
+    frames)."""
+    import numpy as np
+    import torch
+    from rtvc_tpu_torch.data.dataset import load_clip_frames
+    from rtvc_tpu_torch.serving import make_caption_step
+    from rtvc_tpu_torch.train import make_eval_step
+    eval_step = make_eval_step(student, EVAL_MAX_LEN)
+    caption_step = make_caption_step(student, max_len=EVAL_MAX_LEN)
+    ds = loader.dataset
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    rows, ms, steps, texts, vids, first = [], [], [], [], [], None
+    for batch in loader:
+        first = batch["frames"] if first is None else first
+        ev[0].record()
+        got = eval_step(batch["frames"])
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        u8 = torch.from_numpy(np.stack([
+            load_clip_frames(ds.data_path, v, ds.num_frames)
+            for v in batch["vid-id"]])).to(dev)
+        want = caption_step(u8)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"eval rows differ from make_caption_step's on "
+                f"{batch['vid-id']}: {int((got != want).sum())} ids")
+        rows.append(got.cpu())
+        steps.append(decode_steps(got, student.sep_token_id))
+        texts += [tok.decode(r.tolist(), skip_special_tokens=True)
+                  for r in got.cpu()]
+        vids += batch["vid-id"]
+    if sorted(p["image_id"] for p in preds) != sorted(ds.vid_ids) or len(
+            preds) != len(set(p["image_id"] for p in preds)):
+        raise AssertionError("the preds file must name each test clip once")
+    if [(p["image_id"], p["caption"]) for p in preds] != list(zip(vids,
+                                                                   texts)):
+        raise AssertionError("the preds file's texts are not the decode of "
+                             "the eval rows")
+    return rows, ms, steps, first
+
+
+def eval_phase(dev) -> dict:
+    """The evaluation slice on a seeded MSRVTT-format tree: the bf16 serving
+    student saved as a checkpoint and scored through ``python -m
+    rtvc_tpu_torch.evaluate --ckpt`` (greedy, ``max_len`` 45, batches of 8,
+    8 and 4), gated on its scores and preds files, on its launch counts and
+    on its rows against ``make_caption_step``'s; then ``evaluate_checkpoint``
+    greedy and with beam 3, timed (wall, loader included); the pruning sweep
+    at 0.5 and ``pruning_test.test`` on the pruned checkpoint; and the first
+    batch's f32 greedy rows, card vs CPU, reported."""
+    import dataclasses
+    import os
+    import tempfile
+    import torch
+    from rtvc_tpu_torch import evaluate, metrics, pruning, pruning_test
+    from rtvc_tpu_torch.config import cfg
+    from rtvc_tpu_torch.data.io import (load_kd_student_params,
+                                        load_pruned_params, save_checkpoint)
+    from rtvc_tpu_torch.serving import build_serving_student
+    from rtvc_tpu_torch.tokenization import BertWordPieceTokenizer
+    from rtvc_tpu_torch.train import make_eval_step
+
+    t_phase = time.perf_counter()
+    tok = BertWordPieceTokenizer()
+    result = {"clips": EVAL_CLIPS, "max_len": EVAL_MAX_LEN, "launches": {}}
+
+    def add(launched):
+        for k, n in launched.items():
+            result["launches"][k] = result["launches"].get(k, 0) + n
+
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        write_eval_tree(root)
+        os.chdir(root)   # the config's data paths are relative
+        try:
+            student = build_serving_student(device=dev)
+            save_checkpoint("ckpt", {"state_dict": student.state_dict()})
+            loader = evaluate.split_loader(cfg, "test", device=dev)
+            batches = len(loader)
+
+            # the CLI, greedy
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            evaluate.main(["--ckpt", "ckpt", "--out", "scores.json",
+                           "--device", str(dev)])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launched = counts()
+            with open("scores.json") as f:
+                scores = json.load(f)
+            with open("scores.json.preds.json") as f:
+                preds = json.load(f)
+            check_scores("greedy CLI", scores)
+            rows, batch_ms, steps, first = eval_rows_gate(
+                student, loader, tok, preds, dev)
+            eval_launches("greedy CLI", launched, batches, sum(steps))
+            add(launched)
+            log(f"  greedy CLI ({cli_s:.2f} s, student build included): "
+                f"scores {json.dumps(scores)}; launches {launched}; decode "
+                f"steps per batch {steps}; rows equal make_caption_step's")
+            for i, r in enumerate(rows[0][:2].tolist()):
+                log(f"  clip {i} tokens {r}")
+
+            # evaluate_checkpoint, greedy and beam 3, timed
+            annotations = metrics.load_coco_annotations(
+                cfg.data.annotation_path)
+            timing = {}
+            for mode, beam in (("greedy", 0), (f"beam{EVAL_BEAM}",
+                                               EVAL_BEAM)):
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                sc, outputs = evaluate.evaluate_checkpoint(
+                    cfg, loader, tok, student=student, beam_size=beam,
+                    annotations=annotations, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launched = counts()
+                check_scores(mode, sc)
+                calls = (EVAL_MAX_LEN - 1) * batches if beam else sum(steps)
+                eval_launches(mode, launched, batches, calls)
+                add(launched)
+                if not beam and sc != scores:
+                    raise AssertionError("evaluate_checkpoint's greedy "
+                                         "scores differ from the CLI's")
+                timing[mode] = dict(wall_s=wall,
+                                    clips_per_s=EVAL_CLIPS / wall,
+                                    loader_wait_s=loader.wait_s,
+                                    scores=sc, launches=launched)
+                log(f"  {mode:6s} evaluate_checkpoint {wall * 1e3:.1f} ms "
+                    f"wall for {EVAL_CLIPS} clips: "
+                    f"{EVAL_CLIPS / wall:.2f} clips/s; consumer waited "
+                    f"{loader.wait_s * 1e3:.1f} ms on the loader's queue; "
+                    f"launches {launched}")
+            result.update(timing, greedy_cli=dict(
+                seconds=cli_s, scores=scores, decode_steps=steps))
+
+            # parts of a batch of 8: encode, decode per token
+            with torch.inference_mode():
+                enc_ms = cuda_ms(lambda: student.forward_image_enc(first),
+                                 reps=5, warmup=1)
+            b8 = [m for m, r in zip(batch_ms, rows) if len(r) == 8]
+            b8_steps = [s for s, r in zip(steps, rows) if len(r) == 8]
+            per_token = [(m - enc_ms) / s for m, s in zip(b8, b8_steps)]
+            result.update(ms_per_batch8=b8, encode_ms_b8=enc_ms,
+                          decode_ms_per_token=per_token)
+            log(f"  batch of 8: make_eval_step {[round(m, 2) for m in b8]}"
+                f" ms, encode {enc_ms:.2f} ms, decode "
+                f"{[round(t, 3) for t in per_token]} ms a token "
+                f"({b8_steps} steps)")
+
+            # prune at 0.5, then the pruned model's test epoch
+            reset_counts()
+            pruning.main(["--ckpt", "ckpt", "--ratios", str(PRUNE_RATIO),
+                          "--out_dir", "pruned"])
+            before = pruning.sparsity_report(
+                load_kd_student_params("ckpt")["state_dict"])
+            after = pruning.sparsity_report(load_pruned_params(
+                f"pruned/pruned_{PRUNE_RATIO}")["state_dict"])
+            want = round(PRUNE_RATIO * before["total"])
+            log(f"  pruned {PRUNE_RATIO}: zeros {after['zeros']} of "
+                f"{after['total']} prunable (want {want}; "
+                f"{before['zeros']} before, which lie below any threshold)")
+            if before["zeros"] > want or after["zeros"] != want:
+                raise AssertionError(f"pruning at {PRUNE_RATIO} zeroed "
+                                     f"{after['zeros']}, not {want}")
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            bleu = pruning_test.test(cfg, loader, tok,
+                                     f"pruned/pruned_{PRUNE_RATIO}",
+                                     device=dev)
+            torch.cuda.synchronize()
+            launched = counts()
+            log(f"  pruned test epoch: BLEU-4 {bleu} in "
+                f"{time.perf_counter() - t0:.2f} s; launches {launched}")
+            if not math.isfinite(bleu):
+                raise AssertionError("pruned BLEU-4 is not finite")
+            calls = launched["layer_norm"] - 20 * batches
+            if (launched["window_attention"] != 10 * batches or calls <= 0
+                    or calls % 6 or any(
+                        n for k, n in launched.items()
+                        if k not in ("window_attention", "layer_norm"))):
+                raise AssertionError(f"pruned eval launches {launched}")
+            add(launched)
+            result["pruned"] = dict(ratio=PRUNE_RATIO, zeros=after["zeros"],
+                                    zeros_before=before["zeros"],
+                                    total=after["total"], bleu4=bleu,
+                                    launches=launched)
+
+            # f32, card vs CPU, the first batch's greedy rows
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            f32 = dataclasses.replace(cfg, compute_dtype="float32")
+            cpu_student = build_serving_student(device="cpu", config=f32)
+            card = copy.deepcopy(cpu_student).to(dev)
+            rows_card = make_eval_step(card, EVAL_MAX_LEN)(first).cpu()
+            rows_cpu = make_eval_step(cpu_student, EVAL_MAX_LEN)(
+                first.cpu())
+            div = first_token_divergence(rows_card, rows_cpu)
+            result["f32_first_token_divergence"] = div
+            log(f"  f32 first-batch greedy, card vs cpu: first-token "
+                f"divergence {div:.3f} (reported, not gated)")
+            del card, cpu_student
+        finally:
+            os.chdir(home)
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the frozen teacher
 # ---------------------------------------------------------------------------
 
 def timed_run(label: str, fn):
@@ -1427,7 +1758,7 @@ def teacher_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the distillation train step
+# phase 8: the distillation train step
 # ---------------------------------------------------------------------------
 
 # the student's distillation heads: kl + ce leave them without a gradient
@@ -1669,8 +2000,13 @@ def main(argv=None) -> int:
     sv = serve_phase(dev, student_f32, student, windows_cpu)
     del student_f32, student, windows_cpu
     torch.cuda.empty_cache()
-    log(f"[teacher] full-width GIT-Large teacher, bf16 (serve phase took "
+    log(f"[eval] evaluation path: MSRVTT-format split, evaluate CLI, beam "
+        f"{EVAL_BEAM}, pruning (serve phase took "
         f"{time.perf_counter() - t0:.1f} s)")
+    ev = eval_phase(dev)
+    torch.cuda.empty_cache()
+    log(f"[teacher] full-width GIT-Large teacher, bf16 (eval phase took "
+        f"{ev['seconds']:.1f} s)")
     t0 = time.perf_counter()
     te = teacher_phase(dev)
     log(f"[train] distillation train step, full-width student and teacher "
@@ -1683,9 +2019,9 @@ def main(argv=None) -> int:
     # its headline bf16 case (the main path's heaviest, but K2 at the
     # decode's [8, 576], its most launched shape, and K3 with the cold L2
     # its bound assumes, its warm time beside them); its launches on the
-    # main paths, the beam steps of the serve phase included (K8 has no
-    # caller there: its launches are those of flash_attention's gradient
-    # in the kernel phase)
+    # main paths, the beam steps of the serve phase and the eval phase's
+    # runs included (K8 has no caller there: its launches are those of
+    # flash_attention's gradient in the kernel phase)
     primary = {"window_attention": "bfloat16 stage1 b8",
                "layer_norm": "bfloat16 [8,576]",
                "w8_matmul": "bfloat16 cold L2 M=8",
@@ -1701,7 +2037,8 @@ def main(argv=None) -> int:
         head = next(r for r in mine if r["case"].startswith(primary[name]))
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=sl["launches"][name] + sv["launches"][name]
-                   + te["launches"][name] + tr["launches"][name],
+                   + ev["launches"][name] + te["launches"][name]
+                   + tr["launches"][name],
                    max_abs_err=max(r["max_abs_err"] for r in mine),
                    ms=head["ms"], plain_ms=head["plain_ms"],
                    bound_ms=head["bound_us"] / 1e3,
@@ -1723,8 +2060,8 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(device=smi, sass=sass, kernels=kernels,
-                           cases=records, slice=sl, serve=sv, teacher=te,
-                           train=tr), f,
+                           cases=records, slice=sl, serve=sv, eval=ev,
+                           teacher=te, train=tr), f,
                       indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

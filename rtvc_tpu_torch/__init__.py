@@ -1,6 +1,8 @@
 """rtvc_tpu_torch — the caption step and its serving surface, the frozen
-GIT-Large teacher and the distillation train step of ``rtvc_tpu`` in
-PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (``sm_90a``).
+GIT-Large teacher, the distillation train step and the evaluation path
+(COCO metrics, the MSRVTT loader, checkpoint scoring, pruning) of
+``rtvc_tpu`` in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
+(``sm_90a``).
 
 The JAX package ``rtvc_tpu`` is the reference; every module here has a
 counterpart of the same name there:
@@ -26,19 +28,32 @@ counterpart of the same name there:
 - ``tokenization``      ➜ ``rtvc_tpu/tokenization/`` (copied: pure Python)
 - ``data.io``           ➜ ``rtvc_tpu/data/io.py`` (checkpoints as
                           ``torch.save``d state dicts, the meta sidecar,
-                          the distillation-head strip)
+                          the distillation-head strip, pruned checkpoints)
+- ``data.dataset``      ➜ ``rtvc_tpu/data/dataset.py`` (the labels CSV,
+                          ``CaptionDataset``, ``collate_batch``,
+                          ``DeviceLoader``; no pandas)
+- ``data.video_handlers``, ``data.frame_sampling`` ➜ the same modules
+                          (copied; ``cv2`` imported where they decode)
+- ``metrics``           ➜ ``rtvc_tpu/metrics.py`` (copied: pure Python)
 - ``utils.profiling``   ➜ ``rtvc_tpu/utils/profiling.py`` (``StepTimer``)
+- ``utils.logging``     ➜ ``rtvc_tpu/utils/logging.py`` (copied:
+                          ``RunLogger``)
 - ``distill``           ➜ ``rtvc_tpu/distill.py`` (the six losses)
 - ``train``             ➜ ``rtvc_tpu/train.py`` (the train step, Adam, the
-                          plateau scheduler)
+                          plateau scheduler, ``evaluate``)
+- ``evaluate``          ➜ ``rtvc_tpu/evaluate.py`` (``evaluate_checkpoint``)
+- ``inference``         ➜ ``rtvc_tpu/inference.py``
+- ``pruning``, ``pruning_test`` ➜ the same modules (global L1 pruning in
+                          JAX's tie order, the pruned model's test epoch)
 
 ``profile_teacher`` has no counterpart: it prints the teacher's device time
 by op on a card; nor has ``ops.dropout``, the train step's random draws
 from an explicit CPU ``torch.Generator``. Kernels live in ``csrc/`` and are compiled by ``_build``
 with ``nvcc`` at their first launch. A wrapper given CPU tensors runs its
 plain PyTorch version; given CUDA tensors it launches the kernel or raises.
-This package imports neither jax, flax nor, at import time, cv2 (the
-JPEG/PNG codec and the video loop import it where they run).
+This package imports neither jax, flax, pandas nor, at import time, cv2
+(the JPEG/PNG codec, the video decoders and the video loop import it where
+they run).
 """
 
 __version__ = "0.1.0"

@@ -11,13 +11,19 @@ jax. A test holds every field here equal to its JAX counterpart:
   ``rtvc_tpu/models/clip_vit.py``; :class:`GITConfig` ➜
   ``rtvc_tpu/models/git_teacher.py``; :class:`TeacherConfig` ➜
   ``rtvc_tpu/config.py`` ``TeacherConfig`` (``dtype`` as a torch dtype);
+- :class:`DataConfig` ➜ ``rtvc_tpu/config.py`` ``DataConfig`` (the data
+  paths, relative to the working directory, ``num_frames`` and the
+  loader's knobs) and :class:`LoggerConfig` ➜ ``LoggerConfig`` (where runs
+  and their checkpoints live);
 - :class:`TrainConfig` ➜ the fields of ``rtvc_tpu/config.py``
-  ``TrainConfig`` that the train step reads: ``lr``, ``batch_size``, the
-  ``plateau_*`` scheduler and ``grad_accum_steps``;
+  ``TrainConfig`` that the train step and evaluation read: ``lr``,
+  ``batch_size``, the ``plateau_*`` scheduler, ``grad_accum_steps`` and
+  ``eval_beam_size``;
 - :class:`Config` ➜ the fields of ``rtvc_tpu.config.Config`` the student,
-  the teacher and the train step are built from: ``student``, ``teacher``,
-  ``train``, ``tpu.compute_dtype``, ``tpu.quantize_teacher``,
-  ``data.num_frames`` and ``seed`` (the serving student's random init).
+  the teacher, the train step and evaluation are built from: ``data``,
+  ``logger``, ``student``, ``teacher``, ``train``, ``tpu.compute_dtype``,
+  ``tpu.quantize_teacher`` and ``seed`` (the serving student's random
+  init, the caption choice of the evaluation loaders).
 """
 
 from __future__ import annotations
@@ -27,6 +33,26 @@ from dataclasses import dataclass, field
 from typing import Tuple
 
 import torch
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    videos_path: str = "data/MSRVTT/videos/all"
+    captions_path: str = "data/labels/labels.csv"
+    encoded_caption_ids: str = "data/labels/encoded_captions.pkl"
+    annotation_path: str = "data/MSRVTT/annotation/MSR_VTT.json"
+    num_frames: int = 6
+    prefetch_depth: int = 2
+    sampler: str = "even"  # one of data.frame_sampling.SAMPLERS
+    # WordNet database dir (or synonym-group file) for METEOR's synonym
+    # stage (metrics.load_wordnet_synonyms); '' = exact + stem only
+    wordnet_path: str = ""
+
+
+@dataclass(frozen=True)
+class LoggerConfig:
+    save_dir: str = "results/"
+    name: str = "captions"
 
 
 @dataclass(frozen=True)
@@ -124,16 +150,20 @@ class TrainConfig:
     plateau_factor: float = 0.5
     plateau_min_lr: float = 1e-8
     grad_accum_steps: int = 1
+    # 0 = greedy eval (the reference's validation decode); K > 0 = the
+    # student's K-beam search
+    eval_beam_size: int = 0
 
 
 @dataclass(frozen=True)
 class Config:
+    data: DataConfig = field(default_factory=DataConfig)
+    logger: LoggerConfig = field(default_factory=LoggerConfig)
     student: StudentConfig = field(default_factory=StudentConfig)
     teacher: TeacherConfig = field(default_factory=TeacherConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     compute_dtype: str = "bfloat16"      # TpuConfig.compute_dtype
     quantize_teacher: bool = False       # TpuConfig.quantize_teacher
-    num_frames: int = 6                  # DataConfig.num_frames
     seed: int = 5                        # Config.seed
 
     @property

@@ -16,10 +16,11 @@ the port's (both reach the same weights through the weight bridge,
   reference's ``load_kd_student_model`` (io.py:8-35), which drops the
   distillation-only heads (``projectors.*``, ``upsample``, ``project``,
   ``project_decoder``: JAX's ``_DISTILL_HEADS``) for inference;
+- :func:`load_pruned_params`: the reference's ``load_pruned_model``
+  (io.py:38-64); a pruned checkpoint holds its masks applied;
 - :func:`latest_checkpoint`: the newest ``ckpt*`` directory of a run.
 
-``AsyncCheckpointSaver`` and ``load_pruned_params`` wait for the train loop
-and for pruning.
+``AsyncCheckpointSaver`` waits for the train loop.
 """
 
 from __future__ import annotations
@@ -97,6 +98,13 @@ def load_kd_student_params(ckpt_path: str) -> Dict[str, Any]:
     out = dict(tree) if "state_dict" in tree else {"state_dict": sd}
     out["state_dict"] = strip_distillation_heads(sd)
     return out
+
+
+def load_pruned_params(ckpt_path: str) -> Dict[str, Any]:
+    """Load a pruned checkpoint (``pruning.main`` wrote it with the masks
+    already applied to the weights, reference pruning.py:52-53 + io.py:48-62):
+    :func:`load_kd_student_params`' tree."""
+    return load_kd_student_params(ckpt_path)
 
 
 def latest_checkpoint(run_dir: str) -> Optional[str]:

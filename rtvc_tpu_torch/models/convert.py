@@ -14,12 +14,17 @@ kernels become OIHW; LayerNorm/BatchNorm ``scale`` becomes ``weight``; BN
 ``mean``/``var`` become ``running_mean``/``running_var``; the packed
 ``in_proj_kernel`` becomes ``in_proj_weight``. No jax import: leaves are
 read with ``numpy.asarray``.
+
+:func:`student_jax_path`, :func:`to_jax_layout` and
+:func:`from_jax_layout` go the other way for one student entry: its key
+path in the JAX tree and its values in the JAX layout, for code that must
+walk the weights in JAX's order (``pruning``).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +43,21 @@ _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "var": "running_var"}
 
 
+# torch module path → JAX module names: the inverse of _MODULE_RULES, on
+# whole dotted components
+_INVERSE_RULES = tuple(
+    (re.compile(r"(?<![^.])" + pattern + r"(?![^.])"), repl) for
+    pattern, repl in ((r"image_encoder\.model", "image_encoder"),
+                      (r"stages\.(\d+)\.blocks\.(\d+)", r"stage\1_block\2"),
+                      (r"stages\.(\d+)\.downsample", r"stage\1_downsample"),
+                      (r"decoder\.layers\.(\d+)", r"decoder_layer_\1"),
+                      (r"projectors\.(\d+)", r"projector_\1"),
+                      (r"multihead_attn", "cross_attn")))
+# the student's JAX modules whose ``embedding`` leaf is a torch ``weight``
+# (its one nn.Embedding)
+_EMBEDDINGS = ("embed",)
+
+
 def _module_path(parts: List[str]) -> str:
     out = []
     for part in parts:
@@ -50,11 +70,10 @@ def _module_path(parts: List[str]) -> str:
 
 
 def _leaf(name: str, value: Any) -> torch.Tensor:
-    a = np.asarray(value)
-    if name in ("kernel", "in_proj_kernel"):
-        # Dense [in, out] -> Linear [out, in]; conv HWIO -> OIHW
-        a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
-    return torch.from_numpy(np.ascontiguousarray(a))
+    # Dense [in, out] -> Linear [out, in]; conv HWIO -> OIHW (a copy: the
+    # JAX leaf's buffer may be read-only)
+    return from_jax_layout(torch.from_numpy(np.array(value)),
+                           name).contiguous()
 
 
 def _walk(tree: Mapping[str, Any], parts: List[str],
@@ -65,6 +84,37 @@ def _walk(tree: Mapping[str, Any], parts: List[str],
         else:
             name = _module_path(parts)
             out[f"{name}.{_LEAF_NAMES.get(key, key)}"] = _leaf(key, value)
+
+
+def student_jax_path(key: str, ndim: int) -> Tuple[str, ...]:
+    """The key path in the JAX student's ``params`` (or ``batch_stats``)
+    of the student state-dict entry ``key`` holding an ``ndim``-dimensional
+    tensor: the inverse of :func:`student_state_dict_from_jax`'s names."""
+    module, _, leaf = key.rpartition(".")
+    for pattern, repl in _INVERSE_RULES:
+        module = pattern.sub(repl, module)
+    if leaf == "weight":
+        leaf = ("embedding" if module in _EMBEDDINGS else
+                "scale" if ndim == 1 else "kernel")
+    else:
+        leaf = {v: k for k, v in _LEAF_NAMES.items()
+                if v != "weight"}.get(leaf, leaf)
+    return tuple(module.split(".")) + (leaf,)
+
+
+def to_jax_layout(t: torch.Tensor, leaf: str) -> torch.Tensor:
+    """A torch entry's values in the layout of its JAX ``leaf``: Linear
+    ``[out, in]`` → Dense ``[in, out]``, conv OIHW → HWIO (views)."""
+    if leaf in ("kernel", "in_proj_kernel"):
+        return t.t() if t.ndim == 2 else t.permute(2, 3, 1, 0)
+    return t
+
+
+def from_jax_layout(a: torch.Tensor, leaf: str) -> torch.Tensor:
+    """The inverse of :func:`to_jax_layout` (views)."""
+    if leaf in ("kernel", "in_proj_kernel"):
+        return a.t() if a.ndim == 2 else a.permute(3, 2, 0, 1)
+    return a
 
 
 def student_state_dict_from_jax(params: Mapping[str, Any],

@@ -309,7 +309,7 @@ def student_from_config(cfg: Config, input_size: int = 224,
         num_decoder_layers=s.num_decoder_layers, vocab_size=s.vocab_size,
         cls_token_id=s.cls_token_id, sep_token_id=s.sep_token_id,
         max_pos_len=s.max_pos_len, encoder_config=enc, input_size=input_size,
-        num_frames=cfg.num_frames,
+        num_frames=cfg.data.num_frames,
         teacher_visual_dim=cfg.teacher.visual_feature_size,
         teacher_num_tokens=cfg.teacher.num_image_with_embedding * 257,
         teacher_hidden=cfg.teacher.hidden_size).to(device)

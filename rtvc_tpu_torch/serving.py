@@ -21,8 +21,9 @@ Counterpart of ``rtvc_tpu/serving.py``:
 - :func:`compress_window` / :func:`decode_compressed_frames`: JPEG/PNG
   frames for the network fronts (``serving_http``), with the
   decompression-bomb check; ``cv2`` is imported inside them;
-- :func:`build_serving_student`, :func:`server_from_frontend_args` and the
-  CLI demo (:func:`simulate_streams`, :func:`main`).
+- :func:`build_serving_student` (with :func:`load_student_weights`, also
+  the evaluation entry points' model load), :func:`server_from_frontend_args`
+  and the CLI demo (:func:`simulate_streams`, :func:`main`).
 
 Not ported yet: the ``mesh`` (data-parallel) server.
 
@@ -477,16 +478,32 @@ def add_frontend_cli_args(p) -> None:
                         "card)")
 
 
+def load_student_weights(student: StudentCandidateV1,
+                         ckpt: str) -> StudentCandidateV1:
+    """Load the checkpoint's weights without its distillation heads
+    (``data.io.load_kd_student_params``) into ``student``, in place. Every
+    entry must fit the student, and every entry of the student but the
+    heads' must be in the checkpoint."""
+    from .data.io import DISTILL_HEADS, load_kd_student_params
+
+    sd = load_kd_student_params(ckpt)["state_dict"]
+    missing, unexpected = student.load_state_dict(sd, strict=False)
+    stray = [k for k in missing if k.split(".", 1)[0] not in DISTILL_HEADS]
+    if unexpected or stray:
+        raise ValueError(f"checkpoint {ckpt!r} does not fit the student: "
+                         f"missing {stray}, unexpected {unexpected}")
+    return student
+
+
 def build_serving_student(ckpt: Optional[str] = None, device="cuda",
                           config: Config = default_cfg
                           ) -> StudentCandidateV1:
     """The serving student in ``config.dtype``, in eval mode, on
     ``device``: random weights from ``torch.Generator().manual_seed(
-    config.seed)``, then, with ``ckpt``, the checkpoint's weights without
-    its distillation heads (``data.io.load_kd_student_params``) in a
-    student built with the GELU variant its sidecar records
-    (``student_matching_checkpoint``). The one model-load block of every
-    serving surface."""
+    config.seed)``, then, with ``ckpt``, the checkpoint's weights
+    (:func:`load_student_weights`) in a student built with the GELU
+    variant its sidecar records (``student_matching_checkpoint``). The one
+    model-load block of every serving and evaluation surface."""
     from .models.student import (random_init_, student_from_config,
                                  student_matching_checkpoint)
 
@@ -496,13 +513,7 @@ def build_serving_student(ckpt: Optional[str] = None, device="cuda",
         student = student_from_config(config, device="cpu")
     random_init_(student, torch.Generator().manual_seed(config.seed))
     if ckpt:
-        from .data.io import DISTILL_HEADS, load_kd_student_params
-        sd = load_kd_student_params(ckpt)["state_dict"]
-        missing, unexpected = student.load_state_dict(sd, strict=False)
-        stray = [k for k in missing if k.split(".", 1)[0] not in DISTILL_HEADS]
-        if unexpected or stray:
-            raise ValueError(f"checkpoint {ckpt!r} does not fit the student: "
-                             f"missing {stray}, unexpected {unexpected}")
+        load_student_weights(student, ckpt)
     return student.to(device, config.dtype).eval()
 
 

@@ -18,23 +18,29 @@ over ``grad_accum`` microbatches.
   :func:`set_learning_rate` its ``hyperparams["learning_rate"]`` splice;
 - :class:`PlateauScheduler` is the reference's ReduceLROnPlateau;
 - :func:`make_train_step` builds the step, which updates the state in
-  place and returns its metrics (the losses and ``grad_norm``).
+  place and returns its metrics (the losses and ``grad_norm``);
+- :func:`make_eval_step` and :func:`evaluate`: the validation/test epoch
+  (greedy or beam decode to the caption bucket + 5 tokens, per-batch
+  corpus BLEU-4, transcripts, the COCO sweep), and :class:`_NullLogger`.
 
 Not ported yet (ROADMAP Queue 1 item 13): the beam-KD branches
 (``LossWeights.ce_teacher``, ``kd_source="beam_consensus"``), replayed
 teacher outputs (``external_teacher_logits``, ``external_teacher_beam``
 and their top-K caches), ``steps_per_dispatch``, and the ``train()`` loop
-with evaluation and checkpoints.
+with its checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from . import decode as decode_lib
+from . import metrics as metrics_lib
 from .distill import LossWeights, distillation_losses
 
 # teacher encoder blocks tapped for the fmap loss (reference model.py:844)
@@ -121,6 +127,23 @@ class PlateauScheduler:
                 self.lr = max(self.lr * self.factor, self.min_lr)
                 self.bad_epochs = 0
         return self.lr
+
+
+class _NullLogger:
+    """No-op logger for non-zero hosts in multi-host runs: one writer
+    (process 0) owns the run file / scalars / wandb channel."""
+
+    def write(self, text: str) -> None:
+        pass
+
+    def log_scalars(self, step: int, scalars) -> None:
+        pass
+
+    def log_epoch_transcript(self, *a, **k) -> None:
+        pass
+
+    def finish(self) -> None:
+        pass
 
 
 @dataclasses.dataclass
@@ -252,3 +275,70 @@ def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
         return dict(losses, grad_norm=grad_norm)
 
     return step
+
+
+def make_eval_step(student: nn.Module, max_len: int
+                   ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Greedy-decode eval step (reference validation_step, model.py:1006):
+    preprocessed frames ``[B, F, 224, 224, 3]`` → int32 rows ``[B, 1 +
+    max_len]``."""
+    def eval_fn(frames: torch.Tensor) -> torch.Tensor:
+        return decode_lib.student_greedy(student, frames, max_len=max_len)
+    return eval_fn
+
+
+def evaluate(student: nn.Module, loader: Iterable, tokenizer, logger,
+             epoch: int, split: str, max_len_extra: int = 5,
+             annotations: Optional[Dict[str, List[str]]] = None,
+             verbose: bool = True,
+             beam_size: int = 0) -> Tuple[float, List[dict]]:
+    """Validation/test epoch (reference model.py:1006-1102): decode every
+    batch of ``loader`` (a :class:`~rtvc_tpu_torch.data.dataset.
+    DeviceLoader`'s batches) to ``max_len`` = the caption bucket +
+    ``max_len_extra`` (model.py:1010), greedy or, with ``beam_size > 0``,
+    with the student's beam search; per-batch corpus BLEU-4 against the
+    batch's own captions, transcripts to ``logger``, and with
+    ``annotations`` (image_id → reference captions) the COCO sweep, logged.
+    The student carries its weights and runs in eval mode. Returns (the
+    mean of the batches' BLEU-4, the COCO-format outputs ``[{image_id,
+    caption}]``).
+
+    Two phases, as in JAX: every batch is decoded first, its rows left on
+    the device, so the decode never waits on the host's detokenize and
+    BLEU; then the rows are fetched and scored."""
+    student.eval()
+    all_bleu: List[float] = []
+    outputs: List[dict] = []
+    pending: List[Tuple[torch.Tensor, np.ndarray, Any]] = []
+    for batch in loader:
+        y = batch["caption"].cpu().numpy()
+        max_len = int(y.shape[-1]) + max_len_extra  # model.py:1010
+        if beam_size > 0:
+            tokens = decode_lib.student_beam(student, batch["frames"],
+                                             max_len=max_len, k=beam_size)
+        else:
+            tokens = decode_lib.student_greedy(student, batch["frames"],
+                                               max_len=max_len)
+        pending.append((tokens, y, batch["vid-id"]))
+    for tokens, y, vid_ids in pending:
+        tokens = tokens.cpu().numpy()
+        preds = [tokenizer.decode(t, skip_special_tokens=True) for t in tokens]
+        caps = [tokenizer.decode(c, skip_special_tokens=True) for c in y]
+        caps_wrapped = [[c] for c in caps]
+        bleu4 = metrics_lib.calculate_bleu_score_corpus(caps_wrapped, preds)
+        all_bleu.append(bleu4)
+        if verbose:  # reference printed per step (model.py:1023-1025)
+            print(f"Ground-Truth Captions: {caps_wrapped}")
+            print(f"Student Predictions: {preds}")
+            print(f"BLEU@4: {bleu4}")
+        logger.log_epoch_transcript(split, epoch, caps_wrapped, preds, bleu4)
+        for vid, pred in zip(vid_ids, preds):
+            outputs.append({"image_id": str(vid), "caption": pred})
+    mean_bleu = float(np.mean(all_bleu)) if all_bleu else 0.0
+    if annotations:
+        scores = metrics_lib.evaluate_captions(outputs, annotations)
+        logger.write("\n\n" + split + " COCO metrics: "
+                     + str({k: v * 100 for k, v in scores.items()}) + "\n")
+        logger.log_scalars(epoch, {f"{split}_{k}": v * 100
+                                   for k, v in scores.items()})
+    return mean_bleu, outputs

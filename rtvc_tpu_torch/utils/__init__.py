@@ -1,1 +1,2 @@
-"""Utilities of the port: step timers (``profiling``)."""
+"""Utilities of the port: step timers (``profiling``) and run logging
+(``logging``)."""

@@ -233,6 +233,10 @@ def test_config_defaults_equal_jax():
             == dataclasses.asdict(jcfg.student))
     assert (dataclasses.asdict(pconfig.TeacherConfig())
             == dataclasses.asdict(jcfg.teacher))
+    assert (dataclasses.asdict(pconfig.DataConfig())
+            == dataclasses.asdict(jcfg.data))
+    assert (dataclasses.asdict(pconfig.LoggerConfig())
+            == dataclasses.asdict(jcfg.logger))
 
     def same_fields(jc, pc):
         assert ({f.name for f in dataclasses.fields(jc)}
@@ -252,5 +256,7 @@ def test_config_defaults_equal_jax():
     pcfg = pconfig.Config()
     assert pcfg.compute_dtype == jcfg.tpu.compute_dtype
     assert pcfg.quantize_teacher == jcfg.tpu.quantize_teacher
-    assert pcfg.num_frames == jcfg.data.num_frames
+    assert pcfg.data == pconfig.DataConfig()
+    assert pcfg.logger == pconfig.LoggerConfig()
+    assert pcfg.train.eval_beam_size == jcfg.train.eval_beam_size
     assert pcfg.seed == jcfg.seed
