@@ -23,7 +23,8 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    library yardstick, each as a replayed CUDA graph of back-to-back calls
    (bf16 K8's yardstick, SDPA's backward, the median of three); and the
    edge cases of K7, K9 and the bf16 tensor-core K1, K4/K5 and K8, and K1
-   and K2 at the eval phase's ragged last batch, for correctness only. Then K8's one caller, the gradient
+   and K2 at the eval phase's ragged last batch (K2 at its decoder and
+   TinyViT rows), for correctness only. Then K8's one caller, the gradient
    of ``flash_attention`` through autograd, runs once at the joint shape
    with dropout, launch counts reset before and read after;
 4. slice: the full-width student (random weights from a seeded generator,
@@ -48,19 +49,21 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
 6. eval: an MSRVTT-format test split in a temporary directory (20 seeded
    .npy clips of 12 frames at 320×240, 20 captions a clip from the
    synthetic vocabulary's words, encoded by the port's tokenizer). The bf16
-   serving student, saved with ``save_checkpoint``, is scored by ``python
-   -m rtvc_tpu_torch.evaluate --ckpt ... --out ...`` (greedy to max_len
-   45, batches of 8, 8 and 4, launch counts reset before and read after):
-   the scores JSON must hold JAX's keys, all finite, the preds JSON each
-   clip once; ``make_eval_step``'s rows on each loader batch must equal
-   ``make_caption_step``'s on the same uint8 clips bit for bit, and the
-   preds texts their decode; K1 must launch 10 times a TinyViT forward, K2
-   20 times a forward and 6 a decode step, no other kernel. Then
-   ``evaluate_checkpoint`` greedy and with beam 3 (the same gates), timed
-   with the loader; ``pruning.main`` at 0.5 (exactly round(0.5 · total)
-   prunable elements zero) and ``pruning_test.test`` on the pruned checkpoint (K1
-   and K2 launched); the first batch's f32 greedy rows, card vs CPU,
-   reported;
+   serving student, its vocab projection and cross-attention output
+   projections ×10 so that its rows depend on the clip, saved with
+   ``save_checkpoint``, is scored by ``python -m rtvc_tpu_torch.evaluate
+   --ckpt ... --out ...`` (greedy to max_len 45, batches of 8, 8 and 4,
+   launch counts reset before and read after): the scores JSON must hold
+   JAX's keys, all finite, the preds JSON each clip once;
+   ``make_eval_step``'s rows on each loader batch must equal
+   ``make_caption_step``'s on the same uint8 clips bit for bit, more than
+   one distinct row among them, and the preds texts their decode; K1 must
+   launch 10 times a TinyViT forward, K2 20 times a forward and 6 a decode
+   step, no other kernel. Then ``evaluate_checkpoint`` greedy and with beam
+   3 (the same gates), timed with the loader; ``pruning.main`` at 0.5
+   (exactly round(0.5 · total) prunable elements zero) and
+   ``pruning_test.test`` on the pruned checkpoint (K1 and K2 launched); the
+   first batch's f32 greedy rows, card vs CPU, reported;
 7. teacher: the full-width GIT-Large teacher (CLIP ViT-L/14 + the 6-layer
    joint decoder, random weights from a seeded generator, bfloat16) runs
    ``forward_output_logits`` on 8 preprocessed windows with 40-token
@@ -151,6 +154,7 @@ HTTP_ROUNDS = 3                # bursts of 8 concurrent HTTP requests
 EVAL_CLIPS, EVAL_CLIP_FRAMES, EVAL_HW, EVAL_CAPTIONS = 20, 12, (240, 320), 20
 EVAL_MAX_LEN = 45              # the 40-token caption bucket + max_len_extra 5
 EVAL_BEAM = 3
+EVAL_LIVELY = 10.0             # lively_'s scale: rows that depend on the clip
 PRUNE_RATIO = 0.5
 EVAL_KEYS = {"corpus_bleu4", "Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4",
              "METEOR", "ROUGE_L", "CIDEr"}
@@ -454,8 +458,9 @@ def kernel_cases(dev, g):
         # the edges (correctness only): 7 rows of 192 (a warp's last group
         # of lanes past the last row), widths 40 and 100, which take the
         # generic kernel (100 bf16 values are no 16-byte multiple), and the
-        # eval phase's ragged last batch of 4, greedy and beam 3
-        tiny = 8 * FRAMES
+        # eval phase's ragged last batch of 4: its decoder norms, greedy and
+        # beam 3, and its TinyViT norms at 24 frames
+        tiny, ragged = 8 * FRAMES, 4 * FRAMES
         for label, rows, width, mean, reps in (
                 ("", 1, 576, 0.0, 50), ("", 8, 576, 0.0, 50),
                 ("beam ", SERVE_BEAM, 576, 0.0, 50),
@@ -467,7 +472,10 @@ def kernel_cases(dev, g):
                 ("edge: ", 7, 192, 0.0, 10), ("edge: ", 5, 40, 0.0, 10),
                 ("edge: ", 9, 100, 0.0, 10),
                 ("edge: eval b4 ", 4, 576, 0.0, 10),
-                ("edge: eval beam b4 ", 4 * SERVE_BEAM, 576, 0.0, 10)):
+                ("edge: eval beam b4 ", 4 * SERVE_BEAM, 576, 0.0, 10),
+                ("edge: eval b4 ", ragged * 28 * 28, 192, 0.0, 10),
+                ("edge: eval b4 ", ragged * 14 * 14, 384, 0.0, 10),
+                ("edge: eval b4 ", ragged * 7 * 7, 576, 0.0, 10)):
             add("layer_norm", f"{dn} {label}[{rows},{width}]", reps,
                 layernorm.layer_norm, layernorm.layer_norm_plain,
                 ((rand(rows, width, scale=2.0) + mean).to(dtype),
@@ -1289,13 +1297,16 @@ def write_eval_tree(root: str) -> None:
         os.makedirs(os.path.join(root, path), exist_ok=True)
     h, w = EVAL_HW
     rows, encoded, cap_id = [], {}, 0
+    # brightness levels in a seeded order, so that neighbouring clips (and
+    # batches) differ in what they show
+    levels = 0.3 + 0.7 * rng.permutation(EVAL_CLIPS) / (EVAL_CLIPS - 1)
     for i in range(EVAL_CLIPS):
         vid = f"video{7000 + i}"
         coarse = rng.random((EVAL_CLIP_FRAMES, h // 40, w // 40, 3))
         scene = coarse.repeat(40, axis=1).repeat(40, axis=2)
         noise = rng.random((EVAL_CLIP_FRAMES, h, w, 3))
-        level = 0.3 + 0.7 * i / (EVAL_CLIPS - 1)
-        clip = ((0.8 * scene + 0.2 * noise) * level * 255).astype(np.uint8)
+        clip = ((0.8 * scene + 0.2 * noise) * levels[i] * 255).astype(
+            np.uint8)
         np.save(os.path.join(root, data.videos_path, vid + ".npy"), clip)
         for _ in range(EVAL_CAPTIONS):
             caption = " ".join(rng.choice(words,
@@ -1315,6 +1326,21 @@ def write_eval_tree(root: str) -> None:
         json.dump({"annotations": [
             {"image_id": r["image_id"], "caption": r["caption"],
              "id": r["id"]} for r in rows]}, f)
+
+
+def lively_(student) -> None:
+    """Scale, in place, the vocab projection and each decoder layer's
+    cross-attention output projection by 10, as the CPU parity tests do
+    (tests/test_torch_evaluate.py ``lively``). At the random init's scales
+    every clip decodes to the same row, which would leave a loader fault
+    in the frames, their order, the preprocess or the dtype unseen; with
+    these the rows depend on the clip."""
+    import torch
+    with torch.no_grad():
+        student.linear.weight.mul_(EVAL_LIVELY)
+        student.linear.bias.mul_(EVAL_LIVELY)
+        for layer in student.decoder["layers"]:
+            layer.multihead_attn.out_proj.weight.mul_(EVAL_LIVELY)
 
 
 def check_scores(label: str, scores: dict) -> None:
@@ -1373,6 +1399,13 @@ def eval_rows_gate(student, loader, tok, preds, dev) -> tuple:
         texts += [tok.decode(r.tolist(), skip_special_tokens=True)
                   for r in got.cpu()]
         vids += batch["vid-id"]
+    distinct = len({tuple(r) for b in rows for r in b.tolist()})
+    log(f"  {distinct} distinct eval rows of {len(vids)} clips (by batch "
+        f"{[len({tuple(r) for r in b.tolist()}) for b in rows]})")
+    if distinct < 2:
+        raise AssertionError("every clip decoded to the same row: the gate "
+                             "against make_caption_step would see no fault "
+                             "in the loader's frames or order")
     if sorted(p["image_id"] for p in preds) != sorted(ds.vid_ids) or len(
             preds) != len(set(p["image_id"] for p in preds)):
         raise AssertionError("the preds file must name each test clip once")
@@ -1385,13 +1418,14 @@ def eval_rows_gate(student, loader, tok, preds, dev) -> tuple:
 
 def eval_phase(dev) -> dict:
     """The evaluation slice on a seeded MSRVTT-format tree: the bf16 serving
-    student saved as a checkpoint and scored through ``python -m
-    rtvc_tpu_torch.evaluate --ckpt`` (greedy, ``max_len`` 45, batches of 8,
-    8 and 4), gated on its scores and preds files, on its launch counts and
-    on its rows against ``make_caption_step``'s; then ``evaluate_checkpoint``
-    greedy and with beam 3, timed (wall, loader included); the pruning sweep
-    at 0.5 and ``pruning_test.test`` on the pruned checkpoint; and the first
-    batch's f32 greedy rows, card vs CPU, reported."""
+    student, made lively (:func:`lively_`), saved as a checkpoint and scored
+    through ``python -m rtvc_tpu_torch.evaluate --ckpt`` (greedy,
+    ``max_len`` 45, batches of 8, 8 and 4), gated on its scores and preds
+    files, on its launch counts and on its rows against
+    ``make_caption_step``'s; then ``evaluate_checkpoint`` greedy and with
+    beam 3, timed (wall, loader included); the pruning sweep at 0.5 and
+    ``pruning_test.test`` on the pruned checkpoint; and the first batch's
+    f32 greedy rows, card vs CPU, reported."""
     import dataclasses
     import os
     import tempfile
@@ -1418,6 +1452,7 @@ def eval_phase(dev) -> dict:
         os.chdir(root)   # the config's data paths are relative
         try:
             student = build_serving_student(device=dev)
+            lively_(student)
             save_checkpoint("ckpt", {"state_dict": student.state_dict()})
             loader = evaluate.split_loader(cfg, "test", device=dev)
             batches = len(loader)
@@ -1538,6 +1573,7 @@ def eval_phase(dev) -> dict:
             torch.backends.cuda.matmul.allow_tf32 = False
             f32 = dataclasses.replace(cfg, compute_dtype="float32")
             cpu_student = build_serving_student(device="cpu", config=f32)
+            lively_(cpu_student)
             card = copy.deepcopy(cpu_student).to(dev)
             rows_card = make_eval_step(card, EVAL_MAX_LEN)(first).cpu()
             rows_cpu = make_eval_step(cpu_student, EVAL_MAX_LEN)(

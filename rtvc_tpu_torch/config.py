@@ -13,12 +13,16 @@ jax. A test holds every field here equal to its JAX counterpart:
   ``rtvc_tpu/config.py`` ``TeacherConfig`` (``dtype`` as a torch dtype);
 - :class:`DataConfig` ➜ ``rtvc_tpu/config.py`` ``DataConfig`` (the data
   paths, relative to the working directory, ``num_frames`` and the
-  loader's knobs) and :class:`LoggerConfig` ➜ ``LoggerConfig`` (where runs
-  and their checkpoints live);
+  loader's ``prefetch_depth``) and :class:`LoggerConfig` ➜
+  ``LoggerConfig`` (where runs and their checkpoints live);
 - :class:`TrainConfig` ➜ the fields of ``rtvc_tpu/config.py``
-  ``TrainConfig`` that the train step and evaluation read: ``lr``,
-  ``batch_size``, the ``plateau_*`` scheduler, ``grad_accum_steps`` and
-  ``eval_beam_size``;
+  ``TrainConfig`` that the train step reads (``lr``, ``batch_size``, the
+  ``plateau_*`` scheduler, ``grad_accum_steps``), and ``eval_beam_size``;
+- three fields are held equal to JAX's but nothing in the port reads them
+  yet: ``DataConfig.sampler`` and ``wordnet_path`` and
+  ``TrainConfig.eval_beam_size`` are read only by JAX's ``train()`` loop,
+  which is not ported (ROADMAP item 13); the evaluation entry points take
+  the beam from ``--beam`` and run METEOR without WordNet, as JAX's do;
 - :class:`Config` ➜ the fields of ``rtvc_tpu.config.Config`` the student,
   the teacher, the train step and evaluation are built from: ``data``,
   ``logger``, ``student``, ``teacher``, ``train``, ``tpu.compute_dtype``,

@@ -110,7 +110,8 @@ def split_loader(config: Config, split: str, device="cuda"):
     ds = CaptionDataset(config.data.videos_path, data.video_ids(split),
                         data, encoded, num_frames=config.data.num_frames,
                         random_state=config.seed)
-    return DeviceLoader(ds, config.train.batch_size, device=device)
+    return DeviceLoader(ds, config.train.batch_size, device=device,
+                        prefetch_depth=config.data.prefetch_depth)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
