@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's caption step and its server, its evaluation
-path, frozen teacher and distillation train step once on an NVIDIA GPU.
+path, frozen teacher, distillation train step and training loop once on an
+NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -84,7 +85,24 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    only the distillation heads that kl + ce leave unused none; launch
    counts must equal the layer counts. Then one float32 step (TF32 off,
    one window, no dropout, the teacher cut to 2 CLIP blocks and 2 joint
-   layers) on the card is held against the same step on the CPU.
+   layers) on the card is held against the same step on the CPU;
+9. loop: ``train()`` at full width (the same bf16 student over float32
+   masters and bf16 teacher, batches of 8) on a seeded MSRVTT-format tree
+   of 24 train, 8 validate and 8 test clips, two epochs of three steps,
+   under ``torch.use_deterministic_algorithms(True)``: live with
+   background checkpoints; through a full-vocab ``TeacherLogitsCache``
+   (24 misses, then 24 hits, epoch losses within 1e-5 of live);
+   SIGTERM after step 4, ``ckpt_preempt``, then ``resume_schedule`` to an
+   end state (master weights, Adam moments, BatchNorm statistics) equal to
+   the live run's bit for bit; beam-KD (``ce_teacher`` and
+   ``beam_consensus``) through a top-128 ``TeacherBeamCache``, whose hit
+   epoch launches no teacher kernel; ``python -m rtvc_tpu_torch.train``,
+   then ``python -m rtvc_tpu_torch.evaluate`` on its newest checkpoint
+   (rows equal to the test epoch's). Each epoch's and each eval pass's
+   launches are checked against the layer counts; each run prints its
+   epochs' step ms, first step, host share, checkpoint waits and eval
+   time. Then the beam-KD step with the live beam inside it, and the
+   default step's peak memory with and without ``remat_encoder``.
 
 It prints the kernels' record as one JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -1273,14 +1291,15 @@ def serve_phase(dev, student_f32, student, windows_cpu) -> dict:
 # phase 6: the evaluation path
 # ---------------------------------------------------------------------------
 
-def write_eval_tree(root: str) -> None:
-    """An MSRVTT-format test split under ``root``, in the config's relative
-    layout, from numpy, csv, json and pickle only: EVAL_CLIPS clips of
-    EVAL_CLIP_FRAMES uint8 BGR frames at MSRVTT's 320×240 (smooth random
-    scenes plus pixel noise, each clip at its own brightness), and
-    EVAL_CAPTIONS captions a clip of 6-12 words drawn from the synthetic
-    vocabulary's whole words, encoded by the port's tokenizer
-    (``encoded_captions.pkl``) and written raw to ``MSR_VTT.json``."""
+def write_eval_tree(root: str, splits=(("test", EVAL_CLIPS),)) -> None:
+    """An MSRVTT-format tree under ``root``, in the config's relative
+    layout, from numpy, csv, json and pickle only: for each (split, count)
+    of ``splits`` that many clips of EVAL_CLIP_FRAMES uint8 BGR frames at
+    MSRVTT's 320×240 (smooth random scenes plus pixel noise, each clip at
+    its own brightness), and EVAL_CAPTIONS captions a clip of 6-12 words
+    drawn from the synthetic vocabulary's whole words, encoded by the
+    port's tokenizer (``encoded_captions.pkl``) and written raw to
+    ``MSR_VTT.json``."""
     import csv
     import os
     import pickle
@@ -1299,8 +1318,10 @@ def write_eval_tree(root: str) -> None:
     rows, encoded, cap_id = [], {}, 0
     # brightness levels in a seeded order, so that neighbouring clips (and
     # batches) differ in what they show
-    levels = 0.3 + 0.7 * rng.permutation(EVAL_CLIPS) / (EVAL_CLIPS - 1)
-    for i in range(EVAL_CLIPS):
+    split_of = [name for name, n in splits for _ in range(n)]
+    clips = len(split_of)
+    levels = 0.3 + 0.7 * rng.permutation(clips) / (clips - 1)
+    for i in range(clips):
         vid = f"video{7000 + i}"
         coarse = rng.random((EVAL_CLIP_FRAMES, h // 40, w // 40, 3))
         scene = coarse.repeat(40, axis=1).repeat(40, axis=2)
@@ -1312,7 +1333,7 @@ def write_eval_tree(root: str) -> None:
             caption = " ".join(rng.choice(words,
                                           size=int(rng.integers(6, 13))))
             rows.append({"image_id": vid, "id": cap_id, "caption": caption,
-                         "split": "test"})
+                         "split": split_of[i]})
             encoded[cap_id] = encode_caption(caption, tok)
             cap_id += 1
     with open(os.path.join(root, data.captions_path), "w", newline="") as f:
@@ -1989,12 +2010,467 @@ def train_phase(dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the training loop
+# ---------------------------------------------------------------------------
+
+# the loop phase's MSRVTT-format tree: 3 steps of 8 an epoch, one batch of
+# 8 to validate and one to test
+LOOP_SPLITS = (("train", 24), ("validate", 8), ("test", 8))
+LOOP_EPOCHS = 2
+LOOP_BEAM_TOP_K = 128          # the beam cache's top-K consensus rows
+LOOP_KILL = (2, 1)             # SIGTERM before batch 1 of the 2nd epoch
+REMAT_STEPS = 2
+KERNEL_ZERO = {name: 0 for name in KERNELS}
+
+
+def _sub(a: dict, b: dict) -> dict:
+    return {k: a[k] - b.get(k, 0) for k in a}
+
+
+def _add(*parts: dict, times: int = 1) -> dict:
+    out = dict(KERNEL_ZERO)
+    for part in parts:
+        for k, n in part.items():
+            out[k] += n * times
+    return out
+
+
+class EvalCounts:
+    """A validation loader that reads the kernels' launch counts as each of
+    its passes starts and ends: what launched between two passes is one
+    epoch's training."""
+
+    def __init__(self, loader):
+        self.loader, self.starts, self.ends = loader, [], []
+
+    def __iter__(self):
+        self.starts.append(counts())
+        yield from self.loader
+        self.ends.append(counts())
+
+
+class KillAt:
+    """A train loader that sends this process SIGTERM before batch ``at[1]``
+    of its pass ``at[0]`` (``train()`` reads one batch of pass 0 before its
+    loop, so the loop's epoch e is pass 1 + e)."""
+
+    def __init__(self, loader, at):
+        self.loader, self.at, self.passes = loader, at, 0
+
+    def __iter__(self):
+        import os
+        import signal
+        p = self.passes
+        self.passes += 1
+        for i, batch in enumerate(self.loader):
+            if (p, i) == self.at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+
+def loop_loaders(config, dev):
+    from rtvc_tpu_torch.data.dataset import (CaptionDataset, DeviceLoader,
+                                             load_labels)
+    data, encoded = load_labels(config.data.captions_path,
+                                config.data.encoded_caption_ids)
+    out = {}
+    for split, _ in LOOP_SPLITS:
+        ds = CaptionDataset(config.data.videos_path, data.video_ids(split),
+                            data, encoded, num_frames=config.data.num_frames,
+                            random_state=config.seed)
+        out[split] = DeviceLoader(ds, config.train.batch_size,
+                                  shuffle=split == "train", seed=config.seed,
+                                  drop_last=split == "train", device=dev)
+    return out
+
+
+def check_eval_launches(label: str, launched: dict, batches: int) -> int:
+    """A validation or test pass: K1 10 a TinyViT forward, K2 20 a forward
+    and 6 a decode step, nothing else. Returns the decode steps."""
+    calls, rest = divmod(launched["layer_norm"] - 20 * batches, 6)
+    others = {k: n for k, n in launched.items()
+              if k not in ("window_attention", "layer_norm") and n}
+    if (launched["window_attention"] != 10 * batches or rest or others
+            or not batches <= calls <= EVAL_MAX_LEN * batches):
+        raise AssertionError(f"{label}: eval launches {launched}")
+    return calls
+
+
+def loop_phase(dev) -> dict:
+    """The training loop at full width (the bf16 TinyViT-21M student over
+    float32 masters, the bf16 GIT-Large teacher, batches of 8, two epochs
+    of three steps) on a seeded MSRVTT-format tree: ``train()`` live; with
+    a full-vocab ``TeacherLogitsCache`` (its losses the live run's within
+    1e-5); preempted by SIGTERM after step 4 and resumed with
+    ``resume_schedule`` (its end state the live run's bit for bit); beam-KD
+    through a top-K ``TeacherBeamCache`` (the hit epoch launches no teacher
+    kernel); ``python -m rtvc_tpu_torch.train``, then ``python -m
+    rtvc_tpu_torch.evaluate`` on its newest checkpoint (rows equal to its
+    test epoch's). Every epoch's and every eval pass's launches are checked
+    against the layer counts. Then the beam-KD step with the live beam in
+    it, and peak memory with and without ``remat_encoder``. The phase runs
+    under ``torch.use_deterministic_algorithms(True)``."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from rtvc_tpu_torch import decode, evaluate, train
+    from rtvc_tpu_torch.config import cfg
+    from rtvc_tpu_torch.data import io
+    from rtvc_tpu_torch.data.teacher_cache import (TeacherBeamCache,
+                                                   TeacherLogitsCache)
+    from rtvc_tpu_torch.distill import LossWeights
+    from rtvc_tpu_torch.models import git_teacher, student as student_lib
+    from rtvc_tpu_torch.serving import build_serving_student
+    from rtvc_tpu_torch.tokenization import BertWordPieceTokenizer
+
+    t_phase = time.perf_counter()
+    tok = BertWordPieceTokenizer()
+    config = dataclasses.replace(
+        cfg, wandb=dataclasses.replace(cfg.wandb, mode="disabled"),
+        train=dataclasses.replace(cfg.train, trainer=dataclasses.replace(
+            cfg.train.trainer, max_epochs=LOOP_EPOCHS)))
+    beam_kd = LossWeights(ce_teacher=1.0, kd_source="beam_consensus")
+    result = {"launches": dict(KERNEL_ZERO), "runs": {}}
+    template = student_lib.random_init_(
+        student_lib.student_from_config(cfg, device="cpu"),
+        torch.Generator().manual_seed(cfg.seed))
+    teacher = git_teacher.random_init_(
+        git_teacher.teacher_from_config(cfg, device=dev),
+        torch.Generator().manual_seed(cfg.seed + 1))
+    per_step = train_launches_per_step(template, teacher)
+    student_part = dict(per_step, flash_attention=0, blhd_attention=0,
+                        fused_add_layer_norm=0,
+                        layer_norm=per_step["layer_norm"]
+                        - (teacher.config.clip.layers + 4
+                           + 2 * teacher.config.num_layers))
+    tc = teacher.config
+    beam_steps = []
+    real_beam = decode.teacher_beam
+
+    def recording_beam(*a, **k):
+        out = real_beam(*a, **k)
+        beam_steps.append(out.num_steps)
+        return out
+
+    def beam_call(steps):
+        return dict(KERNEL_ZERO, blhd_attention=tc.clip.layers,
+                    fused_add_layer_norm=tc.clip.layers,
+                    flash_attention=tc.num_layers,
+                    layer_norm=tc.clip.layers + 2
+                    + (1 + 2 * tc.num_layers) * (1 + steps))
+
+    home = os.getcwd()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    # timings comparable with the other phases: no NaN fill of new tensors
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    root = tempfile.mkdtemp()
+    try:
+        write_eval_tree(root, LOOP_SPLITS)
+        os.chdir(root)
+
+        def run(label, want_epochs, kill=None, **kw):
+            """One ``train()`` with fresh loaders and a fresh copy of the
+            student; checks each epoch's launches against ``want_epochs``
+            (one dict a trained epoch) and each eval pass's; prints and
+            returns the run's numbers."""
+            loaders = loop_loaders(config, dev)
+            val = EvalCounts(loaders["validate"])
+            feed = loaders["train"] if kill is None else KillAt(
+                loaders["train"], kill)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            state, hist = train.train(
+                config, feed, val, loaders["test"], tok, run_name=label,
+                student=copy.deepcopy(template).to(dev), teacher=teacher,
+                device=dev, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            total = counts()
+            # launches between the end of one validation pass and the
+            # start of the next are an epoch's training; after the last,
+            # the test pass (or, preempted, the interrupted epoch's steps)
+            trained = [_sub(start, end) for start, end in zip(
+                val.starts, [KERNEL_ZERO] + val.ends)]
+            evals = [_sub(end, start)
+                     for start, end in zip(val.starts, val.ends)]
+            tail = _sub(total, val.ends[-1] if val.ends else KERNEL_ZERO)
+            if hist.get("preempted"):
+                trained.append(tail)
+            else:
+                evals.append(tail)
+            if want_epochs is not None:
+                if len(trained) != len(want_epochs):
+                    raise AssertionError(f"{label}: {len(trained)} epochs")
+                for e, (got, want) in enumerate(zip(trained, want_epochs)):
+                    check_launches(f"{label} epoch {e}", got, want)
+            calls = [check_eval_launches(f"{label} eval pass {e}", n, 1)
+                     for e, n in enumerate(evals)]
+            rec = dict(wall_s=wall, steps=state.step,
+                       train_loss=hist["train_loss"],
+                       epoch_step_ms=hist["epoch_step_ms"],
+                       epoch_n_steps=hist["epoch_n_steps"],
+                       first_dispatch_s=hist["epoch_first_dispatch_s"],
+                       epoch_fetch_s=hist["epoch_fetch_s"],
+                       step_device_ms=hist["epoch_step_device_ms"],
+                       eval_s=hist["epoch_eval_s"],
+                       ckpt_wait_s=hist.get("ckpt_wait_s"),
+                       ckpt_snapshot_s=hist.get("ckpt_snapshot_s"),
+                       eval_decode_steps=calls,
+                       epoch_launches=trained, launches=total)
+            # the loop's host share: each epoch's wall less its steps'
+            # spans on the card's stream
+            rec["host_s"] = [ms * n / 1e3 - sum(d) / 1e3 for ms, n, d in zip(
+                hist["epoch_step_ms"], hist["epoch_n_steps"],
+                hist["epoch_step_device_ms"])]
+            for k in ("teacher_cache", "teacher_beam_cache", "preempted",
+                      "test_loss"):
+                if k in hist:
+                    rec[k] = hist[k]
+            if not all(map(math.isfinite, hist["train_loss"])):
+                raise AssertionError(f"{label}: losses {hist['train_loss']}")
+            shown = {k: v for k, v in rec.items()
+                     if k not in ("epoch_launches", "launches")}
+            log(f"  {label}: {json.dumps(shown)}")
+            for k, n in total.items():
+                result["launches"][k] += n
+            result["runs"][label] = rec
+            return state, hist
+
+        live_epoch = _add(per_step, times=3)
+        hit_epoch = _add(student_part, times=3)
+        # 1. live teacher, async checkpoints
+        state, live = run("live", [live_epoch, live_epoch])
+        live_end = train.train_state_tree(state)
+        live_ref = {n: t.detach().cpu().clone() for n, t in
+                    live_end["state_dict"].items()}
+        live_mu = [m.detach().cpu().clone() for m in state.opt_state.mu]
+        live_nu = [m.detach().cpu().clone() for m in state.opt_state.nu]
+        live_test = live["test_outputs"]
+        del state, live_end
+        # 2. a full-vocab logit cache: misses, then hits
+        cache = TeacherLogitsCache(os.path.join(root, "logits"))
+        state, cached = run("logit_cache", [live_epoch, hit_epoch],
+                            teacher_cache=cache)
+        del state
+        shutil.rmtree(os.path.join(root, "logits"))
+        if cached["teacher_cache"] != {"hits": 24, "misses": 24}:
+            raise AssertionError(f"logit cache {cached['teacher_cache']}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(cached["train_loss"],
+                                                      live["train_loss"]))
+        log(f"  logit cache epoch losses vs live: max rel {rel:.3e} "
+            f"(limit 1e-5)")
+        if not rel <= 1e-5:
+            raise AssertionError("cache-hit losses differ from live ones")
+        result["cache_vs_live_rel"] = rel
+        # 3. preempted after step 4, then resumed to the end
+        run_dir = os.path.join(config.logger.save_dir, "run")
+        state, pre = run("preempt", [live_epoch, _add(per_step)],
+                         kill=LOOP_KILL)
+        if not (pre.get("preempted") and state.step == 4):
+            raise AssertionError(f"preempted run ended at {state.step}")
+        ckpt = os.path.join(run_dir, "preempt", "ckpt_preempt")
+        meta = io.checkpoint_meta(ckpt)
+        if (meta["epoch"], meta["steps_into_epoch"]) != (1, 1):
+            raise AssertionError(f"ckpt_preempt meta {meta}")
+        del state
+        state, res = run("resume", [_add(per_step, times=2)],
+                         resume_from=ckpt, resume_schedule=True)
+        tree = train.train_state_tree(state)
+        names = list(tree["opt_state"]["mu"])
+        diff = [n for n, t in tree["state_dict"].items()
+                if not torch.equal(t.cpu(), live_ref[n])]
+        diff += [f"mu {n}" for n, a, b in zip(names, state.opt_state.mu,
+                                              live_mu)
+                 if not torch.equal(a.cpu(), b)]
+        diff += [f"nu {n}" for n, a, b in zip(names, state.opt_state.nu,
+                                              live_nu)
+                 if not torch.equal(a.cpu(), b)]
+        log(f"  resumed end state vs live: {len(diff)} of "
+            f"{len(live_ref) + 2 * len(names)} tensors differ; step "
+            f"{state.step}; test rows equal: "
+            f"{res['test_outputs'] == live_test}")
+        if diff or state.step != 6 or res["test_outputs"] != live_test:
+            raise AssertionError(f"resume is not bitwise: {diff[:5]}")
+        result["resume_bitwise"] = True
+        del state, tree, live_mu, live_nu
+        # 4. beam-KD through a top-K beam cache: live beam, then replay
+        bcache = TeacherBeamCache(
+            os.path.join(root, "beams"), top_k=LOOP_BEAM_TOP_K,
+            beam_size=cfg.teacher.beam_size, max_steps=cfg.teacher.max_steps,
+            length_penalty=cfg.teacher.length_penalty)
+        decode.teacher_beam = recording_beam
+        try:
+            beam_steps.clear()
+            # epoch 1's launches depend on each live beam's steps: checked
+            # below, once they are recorded
+            state, beam = run("beam_kd_cache", None, loss_weights=beam_kd,
+                              teacher_beam_cache=bcache)
+        finally:
+            decode.teacher_beam = real_beam
+        del state
+        rec = result["runs"]["beam_kd_cache"]
+        want = [_add(hit_epoch, *[beam_call(s) for s in beam_steps]),
+                hit_epoch]
+        if len(beam_steps) != 3:
+            raise AssertionError(f"{len(beam_steps)} live beams")
+        for e, (got, w) in enumerate(zip(rec["epoch_launches"], want)):
+            check_launches(f"beam_kd_cache epoch {e}", got, w)
+        if beam["teacher_beam_cache"] != {"hits": 24, "misses": 24}:
+            raise AssertionError(f"beam cache {beam['teacher_beam_cache']}")
+        rec["beam_steps"] = list(beam_steps)
+        log(f"  beam-KD: live beams ran {beam_steps} steps; the hit epoch "
+            f"launched {rec['epoch_launches'][1]}")
+        shutil.rmtree(os.path.join(root, "beams"))
+        shutil.rmtree(run_dir)
+        # 5. the CLI, then evaluate on its newest checkpoint
+        train.default_cfg = config
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            state, hist = train.main(["--device", str(dev)])
+        finally:
+            train.default_cfg = cfg
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launched = counts()
+        steps = LOOP_EPOCHS * 3
+        want = _add(per_step, times=steps)
+        evals = LOOP_EPOCHS + 1
+        check_launches("train CLI", dict(launched, layer_norm=0,
+                                         window_attention=0),
+                       dict(want, layer_norm=0, window_attention=0))
+        check_eval_launches("train CLI evals",
+                            _sub(launched, _add(per_step, times=steps)),
+                            evals)
+        for k, n in launched.items():
+            result["launches"][k] += n
+        run_name = os.listdir(run_dir)[0]
+        reset_counts()
+        evaluate.main([run_name, "--out", "scores.json", "--device",
+                       str(dev)])
+        with open("scores.json") as f:
+            scores = json.load(f)
+        with open("scores.json.preds.json") as f:
+            preds = json.load(f)
+        check_scores("train CLI checkpoint", scores)
+        for k, n in counts().items():
+            result["launches"][k] += n
+        newest = io.latest_checkpoint(os.path.join(run_dir, run_name))
+        scored = build_serving_student(newest, device=dev)
+        test = loop_loaders(config, dev)["test"]
+        rows_equal = all(
+            torch.equal(train.make_eval_step(state.model.eval(),
+                                             EVAL_MAX_LEN)(b["frames"]),
+                        train.make_eval_step(scored, EVAL_MAX_LEN)(
+                            b["frames"])) for b in test)
+        log(f"  train CLI {cli_s:.2f} s ({steps} steps, {evals} eval "
+            f"passes, student and teacher built); evaluate on "
+            f"{os.path.basename(newest)}: corpus BLEU-4 "
+            f"{scores['corpus_bleu4']} (test epoch {hist['test_loss']}), "
+            f"preds equal: {preds == hist['test_outputs']}, rows equal: "
+            f"{rows_equal}")
+        if not (rows_equal and preds == hist["test_outputs"]
+                and scores["corpus_bleu4"] == hist["test_loss"]):
+            raise AssertionError("evaluate's scoring of the CLI's "
+                                 "checkpoint differs from its test epoch")
+        result["cli"] = dict(seconds=cli_s, scores=scores,
+                             epoch_step_ms=hist["epoch_step_ms"],
+                             launches=launched)
+        del state, scored
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(home)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.use_deterministic_algorithms(deterministic)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    result.update(loop_steps_phase(dev, template, teacher, beam_kd))
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
+def loop_steps_phase(dev, template, teacher, beam_kd) -> dict:
+    """``make_train_step`` alone on one batch of 8: the beam-KD step with
+    the live beam inside it (REMAT_STEPS steps, CUDA events), and the
+    default step's peak memory with and without ``remat_encoder`` (the
+    same first step's losses equal): each part's (teacher; student
+    forward, losses and backward, where the encoder's kept activations
+    count; optimizer), split at ``make_train_step``'s marks."""
+    import torch
+    from rtvc_tpu_torch.config import cfg
+    from rtvc_tpu_torch.train import (Adam, create_train_state,
+                                      make_train_step, step_generator)
+    g = torch.Generator().manual_seed(SEED + 10)
+    batch = train_batch(g, dev)
+    out = {}
+    for label, weights, remat in (("beam_kd_live_step", beam_kd, False),
+                                  ("plain_step", None, False),
+                                  ("remat_step", None, True)):
+        student = copy.deepcopy(template).to(dev)
+        student.remat_encoder = remat
+        opt = Adam(cfg.train.lr)
+        state = create_train_state(student, opt, cfg.dtype)
+        kw = {} if weights is None else dict(weights=weights)
+        parts = {}
+
+        def mark(name):
+            if name in ("student", "optimizer", "end"):
+                prev = {"student": "teacher", "optimizer": "student",
+                        "end": "optimizer"}[name]
+                parts.setdefault(prev, []).append(
+                    torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+                torch.cuda.reset_peak_memory_stats(dev)
+
+        step = make_train_step(student, teacher, opt, mark=mark, **kw)
+        ms, peak, losses = [], [], []
+        for i in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            m = step(state, batch, step_generator(cfg.seed + 2, state.step))
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            peak.append(max(parts[p][-1] for p in parts))
+            losses.append({k: float(v) for k, v in m.items()})
+        if not all(math.isfinite(v) for l in losses for v in l.values()):
+            raise AssertionError(f"{label}: {losses}")
+        out[label] = dict(ms=ms, peak_gb=peak, part_peak_gb=parts,
+                          losses=losses)
+        log(f"  {label}: {json.dumps(out[label])}")
+        del student, state, step
+        torch.cuda.empty_cache()
+    plain, remat = out["plain_step"], out["remat_step"]
+    gap = max(abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+              for a, b in zip(remat["losses"], plain["losses"]) for k in b)
+    log(f"  remat_encoder: peak {max(remat['peak_gb']):.3f} GiB against "
+        f"{max(plain['peak_gb']):.3f} without; student forward + backward "
+        f"{max(remat['part_peak_gb']['student']):.3f} against "
+        f"{max(plain['part_peak_gb']['student']):.3f}; losses of both "
+        f"steps differ by {gap:.3e} (relative)")
+    if not gap <= 1e-5:
+        raise AssertionError("remat_encoder changed the step's losses")
+    out["remat_loss_rel_gap"] = gap
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measurement to this "
                                   "JSON file")
     args = ap.parse_args(argv)
 
+    import os
+    # the loop phase runs deterministic algorithms, which cuBLAS gives with
+    # a fixed workspace; it must be set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2049,7 +2525,11 @@ def main(argv=None) -> int:
         f"(teacher phase took {time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     tr = train_phase(dev)
-    log(f"[train] train phase took {time.perf_counter() - t0:.1f} s")
+    log(f"[loop] training loop, full width: live, logit cache, preempt and "
+        f"resume, beam-KD cache, CLI (train phase took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    lp = loop_phase(dev)
+    log(f"[loop] loop phase took {lp['seconds']:.1f} s")
 
     # the row per kernel: its largest error over all cases; its times at
     # its headline bf16 case (the main path's heaviest, but K2 at the
@@ -2074,7 +2554,7 @@ def main(argv=None) -> int:
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=sl["launches"][name] + sv["launches"][name]
                    + ev["launches"][name] + te["launches"][name]
-                   + tr["launches"][name],
+                   + tr["launches"][name] + lp["launches"][name],
                    max_abs_err=max(r["max_abs_err"] for r in mine),
                    ms=head["ms"], plain_ms=head["plain_ms"],
                    bound_ms=head["bound_us"] / 1e3,
@@ -2097,7 +2577,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(dict(device=smi, sass=sass, kernels=kernels,
                            cases=records, slice=sl, serve=sv, eval=ev,
-                           teacher=te, train=tr), f,
+                           teacher=te, train=tr, loop=lp), f,
                       indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,6 +1,7 @@
 """rtvc_tpu_torch — the caption step and its serving surface, the frozen
-GIT-Large teacher, the distillation train step and the evaluation path
-(COCO metrics, the MSRVTT loader, checkpoint scoring, pruning) of
+GIT-Large teacher, the distillation train step and its training loop, and
+the evaluation path (COCO metrics, the MSRVTT loader, checkpoint scoring,
+pruning) of
 ``rtvc_tpu`` in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
 (``sm_90a``).
 
@@ -28,7 +29,10 @@ counterpart of the same name there:
 - ``tokenization``      ➜ ``rtvc_tpu/tokenization/`` (copied: pure Python)
 - ``data.io``           ➜ ``rtvc_tpu/data/io.py`` (checkpoints as
                           ``torch.save``d state dicts, the meta sidecar,
-                          the distillation-head strip, pruned checkpoints)
+                          the distillation-head strip, pruned checkpoints,
+                          the background checkpoint writer)
+- ``data.teacher_cache`` ➜ ``rtvc_tpu/data/teacher_cache.py`` (the
+                          teacher-output caches, their replay feed)
 - ``data.dataset``      ➜ ``rtvc_tpu/data/dataset.py`` (the labels CSV,
                           ``CaptionDataset``, ``collate_batch``,
                           ``DeviceLoader``; no pandas)
@@ -39,8 +43,9 @@ counterpart of the same name there:
 - ``utils.logging``     ➜ ``rtvc_tpu/utils/logging.py`` (copied:
                           ``RunLogger``)
 - ``distill``           ➜ ``rtvc_tpu/distill.py`` (the six losses)
-- ``train``             ➜ ``rtvc_tpu/train.py`` (the train step, Adam, the
-                          plateau scheduler, ``evaluate``)
+- ``train``             ➜ ``rtvc_tpu/train.py`` (``train()`` and its CLI,
+                          the train step, Adam, the schedulers,
+                          ``evaluate``)
 - ``evaluate``          ➜ ``rtvc_tpu/evaluate.py`` (``evaluate_checkpoint``)
 - ``inference``         ➜ ``rtvc_tpu/inference.py``
 - ``pruning``, ``pruning_test`` ➜ the same modules (global L1 pruning in

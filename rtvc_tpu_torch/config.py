@@ -16,18 +16,24 @@ jax. A test holds every field here equal to its JAX counterpart:
   loader's ``prefetch_depth``) and :class:`LoggerConfig` ➜
   ``LoggerConfig`` (where runs and their checkpoints live);
 - :class:`TrainConfig` ➜ the fields of ``rtvc_tpu/config.py``
-  ``TrainConfig`` that the train step reads (``lr``, ``batch_size``, the
-  ``plateau_*`` scheduler, ``grad_accum_steps``), and ``eval_beam_size``;
-- three fields are held equal to JAX's but nothing in the port reads them
-  yet: ``DataConfig.sampler`` and ``wordnet_path`` and
-  ``TrainConfig.eval_beam_size`` are read only by JAX's ``train()`` loop,
-  which is not ported (ROADMAP item 13); the evaluation entry points take
-  the beam from ``--beam`` and run METEOR without WordNet, as JAX's do;
+  ``TrainConfig`` that the train step and ``train()`` read (``lr``,
+  ``batch_size``, the ``plateau_*`` scheduler or ``onecycle``,
+  ``grad_accum_steps``, the teacher-output caches, ``eval_beam_size``,
+  ``async_checkpointing``, ``checkpoint_on_preemption``), with
+  :class:`TrainerConfig` ➜ ``TrainerConfig`` (``max_epochs``,
+  ``precision``, ``enable_checkpointing``); :class:`CallbackConfig` ➜
+  ``CheckpointConfig.save_top_k``; :class:`WandbConfig` ➜ ``WandbConfig``;
+- ``train()`` reads ``DataConfig.wordnet_path`` (METEOR's synonym stage)
+  and ``TrainConfig.eval_beam_size``; ``DataConfig.sampler`` is held equal
+  to JAX's, but neither package reads it;
 - :class:`Config` ➜ the fields of ``rtvc_tpu.config.Config`` the student,
-  the teacher, the train step and evaluation are built from: ``data``,
-  ``logger``, ``student``, ``teacher``, ``train``, ``tpu.compute_dtype``,
-  ``tpu.quantize_teacher`` and ``seed`` (the serving student's random
-  init, the caption choice of the evaluation loaders).
+  the teacher, the train loop and evaluation are built from: ``data``,
+  ``callback``, ``logger``, ``student``, ``teacher``, ``train``,
+  ``wandb``, ``tpu.compute_dtype``, ``tpu.quantize_teacher``,
+  ``tpu.remat_encoder`` and ``seed`` (the random inits, the caption
+  choice of the loaders, the shuffle and the dropout draws);
+- not ported: ``tpu.steps_per_dispatch`` (a scan over batches that
+  measured slower on the TPU; CUDA graphs are the GPU's analogue).
 """
 
 from __future__ import annotations
@@ -51,6 +57,11 @@ class DataConfig:
     # WordNet database dir (or synonym-group file) for METEOR's synonym
     # stage (metrics.load_wordnet_synonyms); '' = exact + stem only
     wordnet_path: str = ""
+
+
+@dataclass(frozen=True)
+class CallbackConfig:
+    save_top_k: int = 1  # epoch checkpoints kept, newest first
 
 
 @dataclass(frozen=True)
@@ -147,27 +158,53 @@ class TeacherConfig:
 
 
 @dataclass(frozen=True)
+class TrainerConfig:
+    max_epochs: int = 20
+    precision: str = "bf16"
+    enable_checkpointing: bool = True
+
+
+@dataclass(frozen=True)
 class TrainConfig:
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
     lr: float = 1e-4
     batch_size: int = 8
     plateau_patience: int = 4
     plateau_factor: float = 0.5
     plateau_min_lr: float = 1e-8
-    grad_accum_steps: int = 1
+    # teacher-output caches ('' = off; top_k 0 = full-vocab rows, exact)
+    teacher_cache_dir: str = ""
+    teacher_cache_top_k: int = 0
+    teacher_beam_cache_dir: str = ""
+    teacher_beam_cache_top_k: int = 0
     # 0 = greedy eval (the reference's validation decode); K > 0 = the
     # student's K-beam search
     eval_beam_size: int = 0
+    async_checkpointing: bool = True
+    scheduler: str = "plateau"  # or "onecycle" (needs a sized loader)
+    onecycle_max_lr: float = 0.01
+    # SIGTERM → ckpt_preempt at the next step boundary
+    checkpoint_on_preemption: bool = True
+    grad_accum_steps: int = 1
+
+
+@dataclass(frozen=True)
+class WandbConfig:
+    mode: str = "offline"
 
 
 @dataclass(frozen=True)
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
+    callback: CallbackConfig = field(default_factory=CallbackConfig)
     logger: LoggerConfig = field(default_factory=LoggerConfig)
     student: StudentConfig = field(default_factory=StudentConfig)
     teacher: TeacherConfig = field(default_factory=TeacherConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    wandb: WandbConfig = field(default_factory=WandbConfig)
     compute_dtype: str = "bfloat16"      # TpuConfig.compute_dtype
     quantize_teacher: bool = False       # TpuConfig.quantize_teacher
+    remat_encoder: bool = False          # TpuConfig.remat_encoder
     seed: int = 5                        # Config.seed
 
     @property

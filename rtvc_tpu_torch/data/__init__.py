@@ -1,7 +1,7 @@
 """Data plumbing of the port: video decode (``video_handlers``, copies of
 the JAX package's, and the content-aware ``frame_sampling`` samplers), the
 caption dataset and its device loader (``dataset``), checkpoint I/O
-(``io``)."""
+(``io``), the teacher-output caches (``teacher_cache``)."""
 
 from .dataset import CaptionDataset, DeviceLoader, collate_batch
 from .frame_sampling import SAMPLERS

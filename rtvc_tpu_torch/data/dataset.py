@@ -17,7 +17,8 @@ semantics (reference src/utils/dataloader.py:35-114):
 - :class:`DeviceLoader`: a producer thread assembles host batches (decode
   + collate, optionally over a spawn process pool); the consumer copies
   each batch to the device and runs ``clip_preprocess`` there, once per
-  batch, while the producer works on the next.
+  batch, while the producer works on the next; a consumer that leaves a
+  pass early stops and reaps its producer.
 
 Not ported yet: the ``mesh`` placement (ROADMAP Queue 1 item 17).
 """
@@ -297,35 +298,61 @@ class DeviceLoader:
         epoch = self._epoch
         self._epoch += 1
 
+        stop = threading.Event()  # set when the consumer abandons us
+
+        def put_q(item) -> bool:
+            """stop-aware bounded put; False = the consumer is gone."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
         def producer():
             try:
                 for batch in self._host_batches(epoch):
-                    q.put(batch)
+                    if not put_q(batch):
+                        return
             except BaseException as e:  # surfaced on the consumer side
                 errbox.append(e)
             finally:
-                q.put(sentinel)
+                put_q(sentinel)
 
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         self.wait_s = 0.0
-        while True:
-            t0 = time.perf_counter()
-            batch = q.get()
-            self.wait_s += time.perf_counter() - t0
-            if batch is sentinel:
-                if errbox:
-                    raise errbox[0]
-                return
-            out = dict(batch)
-            frames = torch.from_numpy(batch["frames"]).to(self.device)
-            if self.preprocess:
-                b, f = frames.shape[:2]
-                proc = clip_preprocess(frames.reshape((-1,) + frames.shape[2:]))
-                frames = proc.reshape((b, f) + proc.shape[1:])
-            out["frames"] = frames
-            out["caption"] = torch.from_numpy(batch["caption"]).to(self.device)
-            yield out
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = q.get()
+                self.wait_s += time.perf_counter() - t0
+                if batch is sentinel:
+                    if errbox:
+                        raise errbox[0]
+                    return
+                out = dict(batch)
+                frames = torch.from_numpy(batch["frames"]).to(self.device)
+                if self.preprocess:
+                    b, f = frames.shape[:2]
+                    proc = clip_preprocess(
+                        frames.reshape((-1,) + frames.shape[2:]))
+                    frames = proc.reshape((b, f) + proc.shape[1:])
+                out["frames"] = frames
+                out["caption"] = torch.from_numpy(batch["caption"]).to(
+                    self.device)
+                yield out
+        finally:
+            # a consumer that stops early (train() reads one batch of a
+            # pass before its loop) must not leave the producer blocked
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            thread.join(timeout=5.0)
 
 
 def load_labels(captions_path: str, encoded_path: str):

@@ -18,9 +18,17 @@ the port's (both reach the same weights through the weight bridge,
   ``project_decoder``: JAX's ``_DISTILL_HEADS``) for inference;
 - :func:`load_pruned_params`: the reference's ``load_pruned_model``
   (io.py:38-64); a pruned checkpoint holds its masks applied;
-- :func:`latest_checkpoint`: the newest ``ckpt*`` directory of a run.
+- :func:`latest_checkpoint`: the newest ``ckpt*`` directory of a run;
+- :class:`AsyncCheckpointSaver`: the train loop's background writer.
+  Unlike JAX arrays, torch tensors change in place, so each ``save`` copies
+  every tensor to the host before its thread starts (into page-locked
+  buffers it keeps and reuses for the next save), and only the disk write
+  runs beside the next steps.
 
-``AsyncCheckpointSaver`` waits for the train loop.
+A train-state checkpoint (``train.train_state_tree``) holds the float32
+master weights and the BatchNorm statistics as ``state_dict``, so the
+evaluation entry points read it as they read any checkpoint, beside
+Adam's ``opt_state`` and the ``step``.
 """
 
 from __future__ import annotations
@@ -28,7 +36,9 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, Mapping, Optional
+import threading
+import time
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -74,6 +84,80 @@ def checkpoint_meta(path: str) -> Dict[str, Any]:
         return {}
     with open(sidecar) as f:
         return json.load(f)
+
+
+class AsyncCheckpointSaver:
+    """Background checkpoint writer: one save in flight at a time, so
+    checkpoints land in order; an error surfaces on the next ``save`` or
+    ``wait`` instead of being swallowed. ``wait_s`` sums the seconds the
+    caller spent blocked on an earlier save, ``snapshot_s`` those spent
+    copying to the host."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._snapshot: Dict[tuple, torch.Tensor] = {}
+        self.wait_s = 0.0
+        self.snapshot_s = 0.0
+
+    def _host_copy(self, tree: Any, key: tuple = ()) -> Any:
+        """``tree`` with every tensor copied into this saver's host buffer
+        for its place in the tree (page-locked for a card tensor, the copy
+        issued without waiting)."""
+        if isinstance(tree, torch.Tensor):
+            t = tree.detach()
+            buf = self._snapshot.get(key)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype,
+                                  pin_memory=t.is_cuda)
+                self._snapshot[key] = buf
+            buf.copy_(t, non_blocking=t.is_cuda)
+            return buf
+        if isinstance(tree, Mapping):
+            return {k: self._host_copy(v, key + (k,))
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self._host_copy(v, key + (i,))
+                              for i, v in enumerate(tree))
+        return tree
+
+    def save(self, path: str, tree: Mapping[str, Any], force: bool = True,
+             on_done: Optional[Callable[[], None]] = None,
+             meta: Optional[Dict[str, Any]] = None) -> None:
+        """Snapshot ``tree`` to the host now, then write it on a worker
+        thread; joins any still-running previous write first. ``on_done()``
+        runs on the worker after a successful write (e.g. pruning stale
+        checkpoints)."""
+        self.wait()
+        t0 = time.perf_counter()
+        host = self._host_copy(dict(tree))
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.current_stream().synchronize()  # the copies landed
+        self.snapshot_s += time.perf_counter() - t0
+
+        def work() -> None:
+            try:
+                save_checkpoint(path, host, force=force, meta=meta)
+                if on_done is not None:
+                    on_done()
+            except BaseException as e:  # re-raised on the caller's thread
+                self._error = e
+
+        self._thread = threading.Thread(target=work, name="ckpt-save",
+                                        daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Block until the in-flight save (if any) finishes; re-raise its
+        error on this thread."""
+        if self._thread is not None:
+            t0 = time.perf_counter()
+            self._thread.join()
+            self.wait_s += time.perf_counter() - t0
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def restore_checkpoint(path: str) -> Dict[str, Any]:

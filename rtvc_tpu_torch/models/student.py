@@ -27,15 +27,21 @@ the train step's losses need. In train mode
 ``nn.TransformerDecoderLayer`` does (attention probabilities, the three
 residual branches, the FFN's hidden layer) and the encoder its DropPath and
 flax BatchNorm, all drawing from the CPU ``torch.Generator`` passed in.
+
+``remat_encoder`` (JAX's ``nn.remat`` of TinyViT) runs the train-mode
+encoder under ``torch.utils.checkpoint``: its activations are recomputed in
+the backward instead of kept (:func:`checkpointed_encoder`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import Config, TinyViTConfig, tiny_vit_21m_config
@@ -47,6 +53,52 @@ from .layers import PositionalEncoding
 from .tinyvit import BatchNorm2d, TinyViT, stage_means
 
 Cache = Dict[str, torch.Tensor]
+
+
+@contextlib.contextmanager
+def _running_stat_updates(module: nn.Module, on: bool):
+    """Let (or keep) ``module``'s BatchNorms update their running
+    statistics inside the block."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.update_running_stats = on
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_running_stats = True
+
+
+def checkpointed_encoder(encoder: TinyViT, x: torch.Tensor,
+                         generator: Optional[torch.Generator]
+                         ) -> List[torch.Tensor]:
+    """``encoder(x, generator)`` under ``torch.utils.checkpoint``, with the
+    results, gradients and side effects of the plain call. The backward's
+    recompute must see the forward's random bits and must not count the
+    batch twice: every run starts from a copy of ``generator``'s state at
+    the call (``torch.utils.checkpoint`` stashes only the global RNGs), and
+    only the first run updates the BatchNorm running statistics. After the
+    call ``generator`` stands where the plain call leaves it."""
+    start = generator.get_state() if generator is not None else None
+    end: List[Optional[torch.Tensor]] = []
+
+    def run(inp: torch.Tensor):
+        gen = None
+        if start is not None:
+            gen = torch.Generator()
+            gen.set_state(start)
+        first = not end
+        with _running_stat_updates(encoder, first):
+            out = encoder(inp, gen)
+        if first:
+            end.append(gen.get_state() if gen is not None else None)
+        return tuple(out)
+
+    out = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                            preserve_rng_state=False)
+    if generator is not None:
+        generator.set_state(end[0])
+    return list(out)
 
 
 class MultiheadAttention(nn.Module):
@@ -181,8 +233,10 @@ class StudentCandidateV1(nn.Module):
                  encoder_config: TinyViTConfig = tiny_vit_21m_config(),
                  input_size: int = 224, num_frames: int = 6,
                  teacher_visual_dim: int = 1024,
-                 teacher_num_tokens: int = 1542, teacher_hidden: int = 768):
+                 teacher_num_tokens: int = 1542, teacher_hidden: int = 768,
+                 remat_encoder: bool = False):
         super().__init__()
+        self.remat_encoder = remat_encoder
         self.d_model = d_model
         self.vocab_size = vocab_size
         self.cls_token_id = cls_token_id
@@ -214,8 +268,12 @@ class StudentCandidateV1(nn.Module):
         if x.shape[2] == 3 and x.shape[-1] != 3:
             x = x.permute(0, 1, 3, 4, 2)
         b, f = x.shape[:2]
-        fmaps = self.image_encoder["model"](x.reshape((b * f,) + x.shape[2:]),
-                                            generator)
+        enc, flat = self.image_encoder["model"], x.reshape((b * f,)
+                                                           + x.shape[2:])
+        if self.remat_encoder and self.training and torch.is_grad_enabled():
+            fmaps = checkpointed_encoder(enc, flat, generator)
+        else:
+            fmaps = enc(flat, generator)
         memory = stage_means(fmaps[-1:])[0].reshape(b, f, -1)
         return fmaps, memory
 
@@ -312,7 +370,8 @@ def student_from_config(cfg: Config, input_size: int = 224,
         num_frames=cfg.data.num_frames,
         teacher_visual_dim=cfg.teacher.visual_feature_size,
         teacher_num_tokens=cfg.teacher.num_image_with_embedding * 257,
-        teacher_hidden=cfg.teacher.hidden_size).to(device)
+        teacher_hidden=cfg.teacher.hidden_size,
+        remat_encoder=cfg.remat_encoder).to(device)
 
 
 def student_matching_checkpoint(cfg: Config, ckpt_path: str,

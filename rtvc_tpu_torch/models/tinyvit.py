@@ -53,7 +53,9 @@ class BatchNorm2d(nn.Module):
     ``nn.BatchNorm2d`` would take the unbiased one. Eval mode is
     ``F.batch_norm`` on the running statistics cast to the input dtype.
     The running statistics stay float32 buffers whatever dtype the module
-    is cast to."""
+    is cast to. ``update_running_stats = False`` (set by the student's
+    activation checkpointing for its recompute) normalises as train mode
+    does but leaves the statistics as they are."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -66,6 +68,7 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self.update_running_stats = True
 
     def _apply(self, fn, recurse=True):
         stats = {name: self._buffers[name] for name in BN_STATS}
@@ -80,13 +83,15 @@ class BatchNorm2d(nn.Module):
             return F.batch_norm(x, self.running_mean.to(x.dtype),
                                 self.running_var.to(x.dtype), self.weight,
                                 self.bias, False, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-            self.num_batches_tracked += 1
+        if self.update_running_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           correction=0)
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 

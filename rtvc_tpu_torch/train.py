@@ -1,10 +1,6 @@
-"""The distillation train step.
+"""The distillation training loop and its train step.
 
-Counterpart of ``rtvc_tpu/train.py`` on its default path: one step runs the
-frozen teacher's teacher-forced forward, the student in train mode
-(decoder dropout, DropPath, BatchNorm on batch statistics), the configured
-distillation losses (kl + ce by default) and one Adam update, optionally
-over ``grad_accum`` microbatches.
+Counterpart of ``rtvc_tpu/train.py`` on one card:
 
 - :class:`TrainState`: the student's compute copy (bfloat16 under the
   default config, BatchNorm statistics float32), float32 master weights,
@@ -13,27 +9,47 @@ over ``grad_accum`` microbatches.
   gradients are taken on the compute copy, cast to float32 and handed to a
   float32 Adam, and the master weights are copied back into the compute
   copy after the update (Adam's 1e-4 steps would round away in bfloat16
-  params);
-- :class:`Adam` is ``optax.inject_hyperparams(optax.adam)``, and
-  :func:`set_learning_rate` its ``hyperparams["learning_rate"]`` splice;
+  params). :func:`train_state_tree` / :func:`load_train_state` put it on
+  disk and back (``data.io``);
+- :class:`Adam` is ``optax.inject_hyperparams(optax.adam)`` at a float
+  learning rate, and :func:`set_learning_rate` its ``hyperparams`` splice,
+  or ``optax.adam`` over a schedule of its count, such as
+  :func:`cosine_onecycle_schedule`;
 - :class:`PlateauScheduler` is the reference's ReduceLROnPlateau;
 - :func:`make_train_step` builds the step, which updates the state in
-  place and returns its metrics (the losses and ``grad_norm``);
+  place and returns its metrics (the losses and ``grad_norm``): the
+  teacher-forced kl + ce by default, the beam-KD losses (``ce_teacher``,
+  ``kd_source="beam_consensus"``) over the teacher's beam search, and
+  teacher outputs replayed from the caches of ``data.teacher_cache``;
 - :func:`make_eval_step` and :func:`evaluate`: the validation/test epoch
   (greedy or beam decode to the caption bucket + 5 tokens, per-batch
-  corpus BLEU-4, transcripts, the COCO sweep), and :class:`_NullLogger`.
+  corpus BLEU-4, transcripts, the COCO sweep), and :class:`_NullLogger`;
+- :func:`train`: the epoch loop with an evaluation each epoch, the plateau
+  scheduler on BLEU (the reference's quirk) or OneCycle, a checkpoint each
+  epoch (in the background with ``async_checkpointing``), a checkpoint at
+  the next step boundary after SIGTERM (:class:`PreemptionGuard`), and a
+  resume that completes the original schedule bit for bit; :func:`main`
+  is ``python -m rtvc_tpu_torch.train``.
 
-Not ported yet (ROADMAP Queue 1 item 13): the beam-KD branches
-(``LossWeights.ce_teacher``, ``kd_source="beam_consensus"``), replayed
-teacher outputs (``external_teacher_logits``, ``external_teacher_beam``
-and their top-K caches), ``steps_per_dispatch``, and the ``train()`` loop
-with its checkpoints.
+Each step's dropout draws come from a generator seeded with ``(seed + 2,
+step)`` (:func:`step_generator`), as JAX folds its dropout key with the
+step, so a resumed run draws what the uninterrupted one drew.
+
+Not ported: ``steps_per_dispatch`` (a scan over batches that measured
+slower on the TPU). A device mesh and multi-process runs raise (ROADMAP
+Queue 1 item 17).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+import functools
+import math
+import os
+import sys
+import time
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -41,11 +57,17 @@ from torch import nn
 
 from . import decode as decode_lib
 from . import metrics as metrics_lib
+from .config import Config, cfg as default_cfg
+from .data.teacher_cache import densify_topk
 from .distill import LossWeights, distillation_losses
 
 # teacher encoder blocks tapped for the fmap loss (reference model.py:844)
 TEACHER_TAP_BLOCKS = (0, 6, 12, 18)
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 13)"
+MULTI_CARD = ("is not ported yet (ROADMAP Queue 1 item 17: "
+              "torch.distributed)")
+EOS = 102  # SEP doubles as the teacher's pad (reference model.py:487)
+
+Schedule = Callable[[int], float]
 
 
 @dataclasses.dataclass
@@ -60,25 +82,39 @@ class AdamState:
 
 
 class Adam:
-    """``optax.inject_hyperparams(optax.adam)(learning_rate)`` at optax's
-    default b1, b2 and eps: the same moments, bias correction and update,
-    in float32, on lists of tensors (``torch._foreach`` ops), params
-    updated in place."""
+    """optax's Adam at its default b1, b2 and eps: the same moments, bias
+    correction and update, in float32, on lists of tensors
+    (``torch._foreach`` ops), params updated in place.
+
+    A float ``learning_rate`` is ``optax.inject_hyperparams(optax.adam)``:
+    the rate lives in ``hyperparams`` and :func:`set_learning_rate` changes
+    it. A schedule is ``optax.adam(learning_rate=schedule)``: each update
+    reads ``schedule(count)`` at the count of updates before it."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, learning_rate: float = 1e-4):
-        self.learning_rate = float(learning_rate)
+    def __init__(self, learning_rate: Union[float, Schedule] = 1e-4):
+        self.learning_rate = (learning_rate if callable(learning_rate)
+                              else float(learning_rate))
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamState:
+        hyper = ({} if callable(self.learning_rate)
+                 else {"learning_rate": self.learning_rate})
         return AdamState(count=0,
                          mu=[torch.zeros_like(p) for p in params],
                          nu=[torch.zeros_like(p) for p in params],
-                         hyperparams={"learning_rate": self.learning_rate})
+                         hyperparams=hyper)
+
+    def current_lr(self, state: AdamState) -> float:
+        """The rate the next update applies."""
+        if callable(self.learning_rate):
+            return self.learning_rate(state.count)
+        return state.hyperparams["learning_rate"]
 
     def update(self, grads: List[torch.Tensor], state: AdamState,
                params: List[torch.Tensor]) -> None:
         b1, b2 = self.b1, self.b2
+        lr = self.current_lr(state)
         state.count += 1
         torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))
@@ -95,7 +131,7 @@ class Adam:
         torch._foreach_add_(denom, self.eps)
         step = torch._foreach_div(state.mu, correction(b1))
         torch._foreach_div_(step, denom)
-        torch._foreach_mul_(step, -state.hyperparams["learning_rate"])
+        torch._foreach_mul_(step, -lr)
         torch._foreach_add_(params, step)
 
 
@@ -103,6 +139,41 @@ def set_learning_rate(opt_state: AdamState, lr: float) -> AdamState:
     """Set the injected learning rate (the plateau scheduler's output)."""
     opt_state.hyperparams["learning_rate"] = float(lr)
     return opt_state
+
+
+def cosine_onecycle_schedule(transition_steps: int, peak_value: float,
+                             pct_start: float = 0.3,
+                             div_factor: float = 25.0,
+                             final_div_factor: float = 1e4) -> Schedule:
+    """optax's ``cosine_onecycle_schedule`` (not torch's ``OneCycleLR``):
+    from ``peak / div_factor`` up to ``peak`` at ``int(pct_start · steps)``
+    and down to ``peak / (div_factor · final_div_factor)`` at ``steps``,
+    cosine between, constant after. Computed as optax computes it inside a
+    jitted update: the bounds and the segment values in float64 on the
+    host, the interpolation in float32."""
+    if transition_steps <= 0:
+        raise ValueError("A linear onecycle schedule was set with a "
+                         "non-positive `transition_steps`")
+    bounds = np.array([0, int(pct_start * transition_steps),
+                       int(transition_steps)])
+    values = np.cumprod([peak_value / div_factor, div_factor,
+                         1.0 / (div_factor * final_div_factor)])
+    lo = torch.tensor(bounds[:-1], dtype=torch.int32)
+    hi = torch.tensor(bounds[1:], dtype=torch.int32)
+    half = torch.tensor((values[:-1] - values[1:]) / 2.0,
+                        dtype=torch.float32)
+    end = torch.tensor(values[1:], dtype=torch.float32)
+    last = torch.tensor(values[-1], dtype=torch.float32)
+
+    def schedule(count: int) -> float:
+        c = torch.tensor(int(count), dtype=torch.int32)
+        indicator = ((lo <= c) & (c < hi)).float()
+        pct = (c - lo) / (hi - lo)
+        interp = end + half * (torch.cos(math.pi * pct) + 1)
+        return float((indicator * interp).sum()
+                     + (int(bounds[-1]) <= int(count)) * last)
+
+    return schedule
 
 
 @dataclasses.dataclass
@@ -146,6 +217,72 @@ class _NullLogger:
         pass
 
 
+def _prune_checkpoints(run_dir: str, keep: int) -> None:
+    """Keep only the newest ``keep`` checkpoints (reference ModelCheckpoint
+    save_top_k=1 monitoring 'epoch' == keep-latest, config.py:47-54)."""
+    import shutil
+    ckpts = sorted(d for d in os.listdir(run_dir) if d.startswith("ckpt_")
+                   and os.path.isdir(os.path.join(run_dir, d)))
+    for stale in ckpts[:-keep] if keep > 0 else []:
+        shutil.rmtree(os.path.join(run_dir, stale), ignore_errors=True)
+        try:  # the checkpoint's sidecar metadata goes with it
+            os.remove(os.path.join(run_dir, stale + ".meta.json"))
+        except OSError:
+            pass
+
+
+def plot_loss(values, label: str, out_path: str) -> None:
+    """Loss-curve plot (reference train.py:28-39), headless (Agg).
+    matplotlib is imported here: ``train()`` never calls this, and a
+    machine without it runs everything else."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots()
+    ax.plot(range(len(values)), values, label=label)
+    ax.set_xlabel("Epoch")
+    ax.set_ylabel(label)
+    ax.legend()
+    fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+
+
+class PreemptionGuard:
+    """SIGTERM → a flag; ``train()`` checkpoints the full train state to
+    ``ckpt_preempt`` at the next step boundary and returns.
+
+    The handler only sets the flag; the loop, which owns the state, does
+    the rest. Handlers are installed only where that is possible (the main
+    thread); elsewhere the guard stays a no-op. ``restore()`` reinstates
+    the previous handlers."""
+
+    def __init__(self, signals=None):
+        import signal as _signal
+
+        self._flag = False
+        self._prev = {}
+        for s in (signals or (_signal.SIGTERM,)):
+            try:
+                self._prev[s] = _signal.signal(s, self._handle)
+            except ValueError:  # not the main thread
+                pass
+
+    def _handle(self, signum, frame):
+        self._flag = True
+
+    @property
+    def triggered(self) -> bool:
+        return self._flag
+
+    def restore(self) -> None:
+        import signal as _signal
+
+        for s, h in self._prev.items():
+            _signal.signal(s, h)
+        self._prev = {}
+
+
 @dataclasses.dataclass
 class TrainState:
     """``model`` is the compute copy the step runs; ``params`` its float32
@@ -167,6 +304,53 @@ def create_train_state(student: nn.Module, optimizer: Adam,
                       opt_state=optimizer.init(params))
 
 
+def train_state_tree(state: TrainState) -> Dict[str, Any]:
+    """The train state as a checkpoint tree (its tensors alias the live
+    ones): ``state_dict`` is the student's state dict with the float32
+    master weights in place of the compute copy's parameters, so the
+    evaluation entry points load it as any checkpoint; ``opt_state`` holds
+    Adam's ``count``, ``mu`` and ``nu`` by parameter name and
+    ``hyperparams``; ``step``."""
+    names = [n for n, _ in state.model.named_parameters()]
+    sd = state.model.state_dict()
+    sd.update(zip(names, state.params))
+    opt = state.opt_state
+    return {"state_dict": sd,
+            "opt_state": {"count": opt.count,
+                          "mu": dict(zip(names, opt.mu)),
+                          "nu": dict(zip(names, opt.nu)),
+                          "hyperparams": dict(opt.hyperparams)},
+            "step": state.step}
+
+
+@torch.no_grad()
+def load_train_state(state: TrainState, tree: Dict[str, Any]) -> TrainState:
+    """Restore ``state`` in place from :func:`train_state_tree`'s tree (as
+    ``data.io.restore_checkpoint`` returns it): the compute copy gets the
+    master weights in its dtype, the BatchNorm statistics as they are."""
+    names = [n for n, _ in state.model.named_parameters()]
+    sd = tree["state_dict"]
+    state.model.load_state_dict(sd)
+    opt = tree["opt_state"]
+    for name, master, mu, nu in zip(names, state.params, state.opt_state.mu,
+                                    state.opt_state.nu):
+        master.copy_(sd[name])
+        mu.copy_(opt["mu"][name])
+        nu.copy_(opt["nu"][name])
+    state.opt_state.count = int(opt["count"])
+    state.opt_state.hyperparams = dict(opt["hyperparams"])
+    state.step = int(tree["step"])
+    return state
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of step ``step``'s dropout draws: a function of
+    ``(seed, step)`` alone, as JAX's ``fold_in(key, step)``."""
+    mixed = np.random.SeedSequence((int(seed), int(step))).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(mixed))
+
+
 def _float_grads(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Each parameter's gradient in float32 (zeros where the loss does not
     reach it, as ``jax.grad`` gives), then cleared."""
@@ -180,9 +364,12 @@ def _float_grads(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
                     weights: LossWeights = LossWeights(),
-                    grad_accum: int = 1,
+                    grad_accum: int = 1, kd_beam_size: int = 4,
+                    kd_max_steps: int = 15, kd_length_penalty: float = 0.6,
                     external_teacher_logits: bool = False,
+                    cache_top_k: int = 0,
                     external_teacher_beam: bool = False,
+                    beam_cache_top_k: int = 0,
                     mark: Optional[Callable[[str], None]] = None):
     """The distillation step ``step(state, batch, generator) -> metrics``
     for the compute copy ``student`` (``state.model``) and the frozen
@@ -190,47 +377,143 @@ def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
     [B, T]``; ``generator`` is the CPU ``torch.Generator`` every dropout
     draw of the step comes from. The teacher runs under ``torch.no_grad()``.
 
-    ``grad_accum = M > 1`` splits the batch into M equal microbatches, runs
-    the whole per-batch computation (teacher included) on each, threads the
-    BatchNorm statistics through them in order, and applies one update with
-    the float32 mean of their gradients; the metrics are the mean of theirs.
+    The teacher's targets, as in JAX:
+
+    - teacher-forced logits from the live forward, or with
+      ``external_teacher_logits`` from the batch: ``teacher_logits [B, T,
+      V]`` float32, or at ``cache_top_k`` the pair ``teacher_topk_vals`` /
+      ``teacher_topk_idx``, densified here (:func:`densify_topk`);
+    - with ``weights.ce_teacher`` or ``kd_source="beam_consensus"``, the
+      teacher's beam search (``decode.teacher_beam``, ``kd_beam_size`` beams,
+      ``kd_max_steps`` steps), or with ``external_teacher_beam`` its
+      predictions ``teacher_beam_predictions`` and consensus rows
+      (``teacher_kd_logits``, or ``teacher_kd_vals`` / ``teacher_kd_idx`` at
+      ``beam_cache_top_k``) from the batch. Loss 5 takes the beam's tokens
+      cut or SEP-padded to the caption length; the consensus KL takes the
+      rows of the words before the first EOS, cut to the caption length.
+      The forced forward runs only where a loss needs it.
+
+    ``grad_accum = M > 1`` splits the batch, cached targets included, into
+    M equal microbatches, runs the whole per-batch computation (teacher
+    included) on each, threads the BatchNorm statistics through them in
+    order, and applies one update with the float32 mean of their gradients;
+    the metrics are the mean of theirs.
 
     ``mark(name)``, when given, is called as each part of a step starts:
     ``"teacher"``, ``"student"`` (forward, losses, backward), ``"optimizer"``
     and, when the step is done, ``"end"``."""
-    if weights.ce_teacher != 0.0 or weights.kd_source == "beam_consensus":
-        raise NotImplementedError(f"beam-KD training {NOT_PORTED}")
-    if external_teacher_logits or external_teacher_beam:
-        raise NotImplementedError(f"replayed teacher outputs {NOT_PORTED}")
     need_fmap = weights.fmap != 0.0
     need_visual = weights.final_enc != 0.0
     need_decoder = weights.decoder != 0.0
+    need_beam = (weights.ce_teacher != 0.0
+                 or weights.kd_source == "beam_consensus")
+    # the forced forward is needed unless the consensus KL replaces it and
+    # no intermediate-activation loss wants its byproducts
+    need_forced = (weights.kd_source == "teacher_forced" or need_fmap
+                   or need_visual or need_decoder)
+    if external_teacher_logits and (need_fmap or need_visual or need_decoder):
+        raise ValueError(
+            "external_teacher_logits (teacher-output caching) supports only "
+            "the kl+ce teacher-forced path; intermediate-activation losses "
+            "need the live teacher forward's taps in the step")
+    if external_teacher_logits and need_beam and not external_teacher_beam:
+        raise ValueError(
+            "beam-KD losses with a forced-logit cache also need the beam "
+            "cache (external_teacher_beam=True / "
+            "cfg.train.teacher_beam_cache_dir) — the beam targets are "
+            "cacheable too (they depend only on the video)")
+    if external_teacher_beam and not need_beam:
+        raise ValueError(
+            "external_teacher_beam set but no loss consumes beam targets "
+            "(weights.ce_teacher == 0 and kd_source != 'beam_consensus')")
     taps = TEACHER_TAP_BLOCKS if need_fmap else None
+    vocab = teacher.config.vocab_size
     teacher.eval().requires_grad_(False)
     mark = mark or (lambda name: None)
+
+    @torch.no_grad()
+    def teacher_targets(batch) -> Dict[str, Any]:
+        frames, captions = batch["frames"], batch["caption"]
+        out: Dict[str, Any] = {"teacher_logits": None, "prefix_len": 0}
+        if external_teacher_logits:
+            if cache_top_k:
+                out["teacher_logits"] = densify_topk(
+                    batch["teacher_topk_vals"], batch["teacher_topk_idx"],
+                    vocab)
+            else:
+                out["teacher_logits"] = batch["teacher_logits"]
+        elif need_forced:
+            t_logits, t_visual, t_hidden, t_taps = \
+                teacher.forward_output_logits(frames, captions, taps)
+            out.update(teacher_logits=t_logits, prefix_len=t_visual.shape[1],
+                       teacher_visual=t_visual if need_visual else None,
+                       teacher_hidden=t_hidden if need_decoder else None,
+                       teacher_cls_taps=t_taps if need_fmap else None)
+        if not need_beam:
+            return out
+        t_len = captions.shape[1]
+        kd_all = beam = None
+        if external_teacher_beam:
+            preds = batch["teacher_beam_predictions"]
+            if weights.kd_source == "beam_consensus":
+                kd_all = (densify_topk(batch["teacher_kd_vals"],
+                                       batch["teacher_kd_idx"], vocab)
+                          if beam_cache_top_k
+                          else batch["teacher_kd_logits"])
+        else:
+            beam = decode_lib.teacher_beam(
+                teacher, frames, beam_size=kd_beam_size,
+                max_steps=kd_max_steps, length_penalty=kd_length_penalty)
+            preds = beam.predictions.clone()  # out of inference mode
+        if weights.ce_teacher != 0.0:
+            # loss 5: the teacher's tokens cut or SEP-padded to the
+            # caption length (reference model.py:946-961)
+            out["teacher_tokens"] = (
+                preds[:, :t_len] if preds.shape[1] >= t_len
+                else torch.nn.functional.pad(
+                    preds, (0, t_len - preds.shape[1]), value=EOS))
+        if weights.kd_source == "beam_consensus":
+            words = preds[:, 1:]
+            is_eos = words == EOS
+            first_eos = torch.argmax(is_eos.int(), dim=1)
+            n_words = torch.where(is_eos.any(dim=1), first_eos,
+                                  words.shape[1])
+            if kd_all is None:
+                kd_all, valid_all = decode_lib.teacher_kd_targets(
+                    beam, n_words)
+            else:
+                steps = kd_all.shape[1]
+                n = torch.clamp(n_words, max=steps)
+                valid_all = (torch.arange(steps, device=n.device)[None, :]
+                             < n[:, None])
+            s = min(t_len, kd_all.shape[1])
+            out["teacher_kd_logits"] = kd_all[:, :s]
+            out["teacher_kd_valid"] = valid_all[:, :s]
+        return out
 
     def batch_losses(batch, generator) -> Dict[str, torch.Tensor]:
         """Forward, losses and backward of one (micro)batch; the gradients
         land in the parameters' ``.grad``."""
         frames, captions = batch["frames"], batch["caption"]
         mark("teacher")
-        with torch.no_grad():
-            t_logits, t_visual, t_hidden, t_taps = \
-                teacher.forward_output_logits(frames, captions, taps)
+        t = teacher_targets(batch)
         mark("student")
         outs = student.distill_forward(
             frames, captions, generator=generator, need_fmap=need_fmap,
             need_visual=need_visual, need_decoder=need_decoder)
         losses = distillation_losses(
-            student_logits=outs["logits"], teacher_logits=t_logits,
+            student_logits=outs["logits"], teacher_logits=t["teacher_logits"],
             targets=captions, weights=weights,
             student_proj_means=outs.get("proj_means"),
-            teacher_cls_taps=t_taps if need_fmap else None,
+            teacher_cls_taps=t.get("teacher_cls_taps"),
             student_visual=outs.get("student_visual"),
-            teacher_visual=t_visual if need_visual else None,
+            teacher_visual=t.get("teacher_visual"),
+            teacher_tokens=t.get("teacher_tokens"),
+            teacher_kd_logits=t.get("teacher_kd_logits"),
+            teacher_kd_valid=t.get("teacher_kd_valid"),
             student_hidden_proj=outs.get("hidden_proj"),
-            teacher_hidden=t_hidden if need_decoder else None,
-            teacher_prefix_len=t_visual.shape[1])
+            teacher_hidden=t.get("teacher_hidden"),
+            teacher_prefix_len=t["prefix_len"])
         losses["total"].backward()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -342,3 +625,520 @@ def evaluate(student: nn.Module, loader: Iterable, tokenizer, logger,
         logger.log_scalars(epoch, {f"{split}_{k}": v * 100
                                    for k, v in scores.items()})
     return mean_bleu, outputs
+
+
+def _build_models(config: Config, device) -> Tuple[nn.Module, nn.Module]:
+    """The config's student and teacher with random weights, the student's
+    from ``config.seed`` and the teacher's from ``config.seed + 1`` (W8A8
+    packed from its float weights under ``quantize_teacher``), on
+    ``device``; the student float32 (``create_train_state`` casts it)."""
+    from .models import git_teacher
+    from .models.student import random_init_, student_from_config
+
+    student = random_init_(student_from_config(config, device="cpu"),
+                           torch.Generator().manual_seed(config.seed))
+    teacher = git_teacher.random_init_(
+        git_teacher.teacher_from_config(
+            dataclasses.replace(config, quantize_teacher=False),
+            device=device),
+        torch.Generator().manual_seed(config.seed + 1))
+    if config.quantize_teacher:
+        teacher = git_teacher.quantize_teacher_variables(teacher)
+    return student.to(device), teacher
+
+
+def train(config: Config, train_loader: Iterable, val_loader, test_loader,
+          tokenizer, run_name: str = "run",
+          annotations: Optional[Dict[str, List[str]]] = None,
+          student: Optional[nn.Module] = None,
+          teacher: Optional[nn.Module] = None,
+          loss_weights: LossWeights = LossWeights(),
+          mesh=None, max_epochs: Optional[int] = None,
+          resume_from: Optional[str] = None,
+          resume_schedule: bool = False,
+          teacher_cache=None, teacher_beam_cache=None,
+          device="cuda") -> Tuple[TrainState, Dict[str, Any]]:
+    """A full distillation run (reference train.py:42-157), JAX's
+    ``train()`` on one card. ``student`` and ``teacher`` default to the
+    config's with random weights on ``device`` (:func:`_build_models`); a
+    given student is trained in place, on its own device, and becomes the
+    state's compute copy in ``config.dtype``. Each epoch trains over
+    ``train_loader`` (iterated once before the loop, as JAX takes its
+    example batch, so epoch e shuffles as the loader's pass 1 + e), then
+    evaluates on ``val_loader`` and steps the scheduler; the test epoch
+    follows the last.
+
+    ``resume_from``: a checkpoint this function wrote; params, BatchNorm
+    statistics, Adam's state and the step are restored, and the run trains
+    ``max_epochs`` more. With ``resume_schedule=True`` it completes the
+    original schedule instead: the loop continues at the checkpoint's
+    recorded position (``ckpt_preempt`` redoes the interrupted epoch from
+    its first untrained batch; an epoch-end ``ckpt_NN`` starts at epoch N +
+    1), the plateau scheduler's state is restored, and a loader with
+    ``set_epoch`` (``DeviceLoader``) is realigned, so the run ends with the
+    uninterrupted run's weights, bit for bit.
+
+    ``teacher_cache`` (a :class:`~.data.teacher_cache.TeacherLogitsCache`
+    or its directory; kl + ce only) and ``teacher_beam_cache``
+    (:class:`~.data.teacher_cache.TeacherBeamCache` or its directory; the
+    beam-KD losses only): the teacher's outputs are computed on a miss,
+    stored, and replayed on later epochs through
+    :class:`~.data.teacher_cache.CacheReplayFeed`; on a miss and on a hit
+    the step sees the same float32 targets.
+
+    Returns the state and ``history``: JAX's keys (``train_loss``,
+    ``val_loss``, ``test_loss``, ``epoch_step_ms``, ``epoch_dispatch_ms``,
+    ``epoch_fetch_s``, ``epoch_first_dispatch_s``, ``epoch_n_steps``,
+    ``timing``, the caches' ``stats()``, ``preempted``), plus
+    ``epoch_step_device_ms`` (each step's span on the card's stream, CUDA
+    events; empty on the CPU), ``epoch_eval_s`` (each validation epoch's
+    wall time), ``ckpt_wait_s`` and ``ckpt_snapshot_s`` (the loop's waits
+    on the background checkpoint writer, and its copies to the host) and
+    ``test_outputs`` (the test epoch's COCO-format captions)."""
+    from .data import teacher_cache as cache_lib
+    from .data.io import (AsyncCheckpointSaver, checkpoint_meta,
+                          restore_checkpoint, save_checkpoint)
+    from .utils.logging import RunLogger
+    from .utils.profiling import StepTimer
+
+    if mesh is not None:
+        raise NotImplementedError(f"train(mesh=...) {MULTI_CARD}")
+    run_dir = os.path.join(config.logger.save_dir, "run", run_name)
+    os.makedirs(run_dir, exist_ok=True)
+    if config.data.wordnet_path:  # METEOR synonym stage (metrics.py)
+        metrics_lib.set_wordnet_path(config.data.wordnet_path)
+    logger = RunLogger(run_dir, run_name, config_dump={
+        "Teacher model": "GITTeacher",
+        "Teacher model configuration": dataclasses.asdict(config.teacher),
+        "Student model": "StudentCandidateV1",
+        "Student model configuration": dataclasses.asdict(config.student),
+        "Learning Rate": config.train.lr,
+        "Number of epochs": config.train.trainer.max_epochs,
+        "Batch size": config.train.batch_size,
+        "Precision": config.train.trainer.precision,
+    }, use_wandb=config.wandb.mode != "disabled")
+
+    if student is None or teacher is None:
+        built = _build_models(config, device)
+        student = student if student is not None else built[0]
+        teacher = teacher if teacher is not None else built[1]
+        del built
+    # JAX draws its example batch here: one pass of the loader, so that
+    # epoch e of the loop is the loader's pass 1 + e in both packages
+    first_pass = iter(train_loader)
+    next(first_pass, None)
+    if first_pass is not train_loader:  # a pass of its own: stop it
+        getattr(first_pass, "close", lambda: None)()
+
+    sched = PlateauScheduler(lr=config.train.lr,
+                             factor=config.train.plateau_factor,
+                             patience=config.train.plateau_patience,
+                             min_lr=config.train.plateau_min_lr)
+    use_onecycle = config.train.scheduler == "onecycle"
+    if use_onecycle:
+        # the reference's dead OneCycleLR (model.py:1110-1113) as a
+        # working option: a schedule of the optimizer's count
+        n_epochs = max_epochs or config.train.trainer.max_epochs
+        try:
+            steps_per_epoch = len(train_loader)
+        except TypeError:
+            raise ValueError(
+                "cfg.train.scheduler='onecycle' needs a sized train_loader "
+                "(len()) to fix total_steps; use 'plateau' with unsized "
+                "loaders")
+        onecycle = cosine_onecycle_schedule(
+            transition_steps=max(1, n_epochs * steps_per_epoch),
+            peak_value=config.train.onecycle_max_lr)
+        optimizer = Adam(learning_rate=onecycle)
+    else:
+        optimizer = Adam(learning_rate=config.train.lr)
+
+    state = create_train_state(student, optimizer, config.dtype)
+    start_epoch = 0       # first epoch-loop index this run executes
+    skip_batches = 0      # already-trained batches to skip in start_epoch
+    if resume_schedule and resume_from is None:
+        raise ValueError("resume_schedule=True needs resume_from")
+    if resume_from is not None:
+        load_train_state(state, restore_checkpoint(resume_from))
+        logger.write(f"\nresumed from {resume_from} at step "
+                     f"{state.step}\n")
+        meta_r = checkpoint_meta(resume_from)
+        _g = meta_r.get("gelu_approximate")
+        if _g is not None and bool(_g) != config.student.gelu_approximate:
+            logger.write(
+                f"WARNING: checkpoint was trained with gelu_approximate="
+                f"{bool(_g)} but this run uses "
+                f"{config.student.gelu_approximate} — set "
+                f"cfg.student.gelu_approximate to match\n")
+        if resume_schedule:
+            if "epoch" not in meta_r:
+                raise ValueError(
+                    "resume_schedule=True needs a checkpoint that records "
+                    "its schedule position ('epoch' in the meta sidecar) — "
+                    f"{resume_from} predates that; resume without "
+                    "resume_schedule for 'train max_epochs more' semantics")
+            if meta_r.get("preempted"):
+                # the interrupted epoch never finished: redo it from the
+                # first batch that did not train before the SIGTERM
+                start_epoch = int(meta_r["epoch"])
+                skip_batches = int(meta_r.get("steps_into_epoch", 0))
+            else:
+                start_epoch = int(meta_r["epoch"]) + 1
+            saved = meta_r.get("plateau")
+            if saved is not None and not use_onecycle:
+                sched.lr = float(saved["lr"])
+                sched.best = float(saved["best"])
+                sched.bad_epochs = int(saved["bad_epochs"])
+            if hasattr(train_loader, "set_epoch"):
+                # this run's first pass above counted too: pin the next
+                # pass to start_epoch's, as in the uninterrupted run
+                train_loader.set_epoch(1 + start_epoch)
+            logger.write(
+                f"resuming schedule at epoch {start_epoch}"
+                + (f" (skipping {skip_batches} already-trained batches)"
+                   if skip_batches else "") + "\n")
+    dev = state.params[0].device
+    on_card = dev.type == "cuda"
+
+    if isinstance(teacher_cache, str):
+        teacher_cache = cache_lib.TeacherLogitsCache(
+            teacher_cache, top_k=config.train.teacher_cache_top_k)
+    kd_beam = (config.teacher.beam_size, config.teacher.max_steps,
+               config.teacher.length_penalty)
+    need_beam_targets = (loss_weights.ce_teacher != 0.0
+                         or loss_weights.kd_source == "beam_consensus")
+    if isinstance(teacher_beam_cache, str):
+        teacher_beam_cache = cache_lib.TeacherBeamCache(
+            teacher_beam_cache, top_k=config.train.teacher_beam_cache_top_k,
+            beam_size=kd_beam[0], max_steps=kd_beam[1],
+            length_penalty=kd_beam[2],
+            store_consensus=loss_weights.kd_source == "beam_consensus")
+    if teacher_beam_cache is not None and not need_beam_targets:
+        raise ValueError(
+            "teacher_beam_cache set but no beam-KD loss is active "
+            "(loss_weights.ce_teacher == 0 and kd_source != "
+            "'beam_consensus')")
+    if (teacher_beam_cache is not None
+            and loss_weights.kd_source == "beam_consensus"
+            and not teacher_beam_cache.store_consensus):
+        raise ValueError(
+            "kd_source='beam_consensus' needs a TeacherBeamCache with "
+            "store_consensus=True (this one stores predictions only)")
+    grad_accum = max(1, int(config.train.grad_accum_steps))
+    train_step = make_train_step(
+        student, teacher, optimizer, loss_weights,
+        kd_beam_size=kd_beam[0], kd_max_steps=kd_beam[1],
+        kd_length_penalty=kd_beam[2], grad_accum=grad_accum,
+        external_teacher_logits=teacher_cache is not None,
+        cache_top_k=teacher_cache.top_k if teacher_cache is not None else 0,
+        external_teacher_beam=teacher_beam_cache is not None,
+        beam_cache_top_k=teacher_beam_cache.top_k
+        if teacher_beam_cache is not None else 0)
+
+    @torch.no_grad()
+    def logits_miss(arrays, keys) -> None:
+        """The live teacher for a batch the logits cache misses: stored,
+        then replayed in the step as a hit would be (float32, top-K cut)."""
+        t_logits = teacher(arrays["frames"], arrays["caption"]).float()
+        dense = t_logits.cpu().numpy()
+        teacher_cache.put_batch(keys, dense)
+        if teacher_cache.top_k:
+            vals, idx = teacher_cache.compress(dense)
+            arrays["teacher_topk_vals"] = torch.from_numpy(vals).to(dev)
+            arrays["teacher_topk_idx"] = torch.from_numpy(idx).to(dev)
+        else:
+            arrays["teacher_logits"] = t_logits
+
+    @torch.no_grad()
+    def beam_miss(arrays, keys) -> None:
+        """The live beam for a batch the beam cache misses: predictions and
+        the full consensus rows ``[B, S, V]`` (the step derives the words,
+        the valid mask and the cut from them as the live branch does)."""
+        out = decode_lib.teacher_beam(
+            teacher, arrays["frames"], beam_size=kd_beam[0],
+            max_steps=kd_beam[1], length_penalty=kd_beam[2])
+        preds = out.predictions.clone()
+        arrays["teacher_beam_predictions"] = preds
+        if not teacher_beam_cache.store_consensus:
+            teacher_beam_cache.put_batch(keys, preds.cpu().numpy())
+            return
+        steps = out.logits.shape[0]
+        kd_all, _ = decode_lib.teacher_kd_targets(
+            out, torch.full((preds.shape[0],), steps, device=dev))
+        dense = kd_all.float().cpu().numpy()
+        teacher_beam_cache.put_batch(keys, preds.cpu().numpy(), dense)
+        if teacher_beam_cache.top_k:
+            vals, idx = teacher_beam_cache.compress(dense)
+            arrays["teacher_kd_vals"] = torch.from_numpy(vals).to(dev)
+            arrays["teacher_kd_idx"] = torch.from_numpy(idx).to(dev)
+        else:
+            arrays["teacher_kd_logits"] = kd_all.float()
+
+    timer = StepTimer("train_step")
+    epochs = max_epochs or config.train.trainer.max_epochs
+    history: Dict[str, Any] = {"train_loss": [], "val_loss": [],
+                               "epoch_eval_s": [],
+                               "epoch_step_device_ms": []}
+    ckpt_saver = (AsyncCheckpointSaver()
+                  if config.train.async_checkpointing else None)
+    save_ckpts = config.train.trainer.enable_checkpointing
+
+    def plateau_meta() -> Optional[Dict[str, float]]:
+        return None if use_onecycle else {
+            "lr": sched.lr, "best": sched.best,
+            "bad_epochs": sched.bad_epochs}
+
+    guard = (PreemptionGuard() if config.train.checkpoint_on_preemption
+             else None)
+    preempted = False
+    try:
+        for epoch in range(start_epoch, epochs):
+            # a resumed, preempted epoch: its first batches trained before
+            # the SIGTERM; consume them without compute
+            epoch_skip = skip_batches if epoch == start_epoch else 0
+            to_skip = epoch_skip
+            # losses stay on the card until the epoch ends: a fetch a step
+            # would make the host wait for each step
+            epoch_losses: List[torch.Tensor] = []
+            epoch_t0 = time.perf_counter()
+            n_steps = 0
+            first_dispatch_s = 0.0
+            dispatch_ms: List[float] = []
+            spans: List[Tuple[Any, Any]] = []
+            feed = train_loader
+            if teacher_cache is not None or teacher_beam_cache is not None:
+                feed = cache_lib.CacheReplayFeed(
+                    train_loader, teacher_cache,
+                    beam_cache=teacher_beam_cache, device=dev)
+            for batch in feed:
+                if to_skip > 0:
+                    to_skip -= 1
+                    continue
+                if guard is not None and guard.triggered:
+                    preempted = True  # stop at this step boundary
+                    break
+                arrays = {"frames": batch["frames"],
+                          "caption": batch["caption"]}
+                if teacher_cache is not None:
+                    hit = [k for k in ("teacher_topk_vals",
+                                       "teacher_topk_idx", "teacher_logits")
+                           if k in batch]
+                    if hit:
+                        arrays.update((k, batch[k]) for k in hit)
+                    else:
+                        logits_miss(arrays, batch["_cache_keys"])
+                if teacher_beam_cache is not None:
+                    if "teacher_beam_predictions" in batch:
+                        arrays.update(
+                            (k, batch[k]) for k in (
+                                "teacher_beam_predictions",
+                                "teacher_kd_logits", "teacher_kd_vals",
+                                "teacher_kd_idx") if k in batch)
+                    else:
+                        beam_miss(arrays, batch["_beam_cache_keys"])
+                if grad_accum > 1:
+                    # a ragged tail batch must not hit the step's
+                    # divisibility error mid-training: trim it
+                    bs = int(arrays["caption"].shape[0])
+                    usable = (bs // grad_accum) * grad_accum
+                    if usable == 0:
+                        raise ValueError(
+                            f"batch of {bs} rows cannot be split over dp=1 "
+                            f"x grad_accum={grad_accum}; raise the batch "
+                            f"size or lower cfg.train.grad_accum_steps")
+                    if usable != bs:
+                        logger.write(f"\ntrimming ragged batch {bs} -> "
+                                     f"{usable} for dp=1/grad_accum="
+                                     f"{grad_accum} (use drop_last to "
+                                     f"avoid)\n")
+                        arrays = {k: v[:usable] for k, v in arrays.items()}
+                t_dispatch = time.perf_counter()
+                if on_card:
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                m = train_step(state, arrays, step_generator(
+                    config.seed + 2, state.step))
+                if on_card:
+                    ev[1].record()
+                    spans.append(ev)
+                dispatch_s = time.perf_counter() - t_dispatch
+                if n_steps == 0:
+                    first_dispatch_s = dispatch_s
+                dispatch_ms.append(dispatch_s * 1e3)
+                epoch_losses.append(m["total"])
+                n_steps += 1
+            t_fetch = time.perf_counter()
+            losses_np = (torch.stack(epoch_losses).float().cpu().tolist()
+                         if epoch_losses else [])
+            fetch_s = time.perf_counter() - t_fetch
+            epoch_dt = time.perf_counter() - epoch_t0
+            if n_steps:
+                timer.durations.append(epoch_dt / n_steps)
+            history.setdefault("epoch_n_steps", []).append(n_steps)
+            history.setdefault("epoch_first_dispatch_s", []).append(
+                round(first_dispatch_s, 3))
+            history.setdefault("epoch_dispatch_ms", []).append(
+                [round(d, 1) for d in dispatch_ms])
+            history.setdefault("epoch_fetch_s", []).append(round(fetch_s, 3))
+            history["epoch_step_device_ms"].append(
+                [a.elapsed_time(b) for a, b in spans])
+            mean_loss = float(np.mean(losses_np)) if losses_np else 0.0
+            history["train_loss"].append(mean_loss)
+
+            if preempted:
+                if save_ckpts:
+                    if ckpt_saver is not None:
+                        ckpt_saver.wait()  # earlier epochs' pending writes
+                    save_checkpoint(
+                        os.path.join(run_dir, "ckpt_preempt"),
+                        train_state_tree(state),
+                        meta={"gelu_approximate":
+                              bool(config.student.gelu_approximate),
+                              "preempted": True, "epoch": epoch,
+                              # trained batches of this epoch, those a
+                              # prior resume skipped included
+                              "steps_into_epoch": epoch_skip + n_steps,
+                              # as of the last completed epoch
+                              "plateau": plateau_meta()})
+                logger.write(
+                    f"\nSIGTERM: checkpointed full train state to "
+                    f"ckpt_preempt at epoch {epoch} step {state.step} "
+                    f"({epoch_skip + n_steps} steps into the epoch); resume "
+                    f"with train(resume_from=<run_dir>/ckpt_preempt, "
+                    f"resume_schedule=True) to complete the schedule\n")
+                history["preempted"] = True
+                break
+
+            t_eval = time.perf_counter()
+            val_bleu, _ = evaluate(student, val_loader, tokenizer, logger,
+                                   epoch, "Validation",
+                                   annotations=annotations,
+                                   beam_size=config.train.eval_beam_size)
+            history["epoch_eval_s"].append(time.perf_counter() - t_eval)
+            history["val_loss"].append(val_bleu)
+            if use_onecycle:
+                new_lr = optimizer.current_lr(state.opt_state)
+            else:
+                # quirk preserved: min-mode plateau on BLEU
+                new_lr = sched.update(val_bleu)
+                set_learning_rate(state.opt_state, new_lr)
+
+            logger.log_scalars(epoch, {"train_loss": mean_loss,
+                                       "val_loss": val_bleu, "lr": new_lr,
+                                       **timer.summary()})
+            if save_ckpts:
+                path = os.path.join(run_dir, f"ckpt_{epoch:02d}")
+                prune = functools.partial(_prune_checkpoints, run_dir,
+                                          config.callback.save_top_k)
+                # gelu_approximate: loaders rebuild the student with the
+                # activation these weights were trained under; epoch and
+                # plateau (after this epoch's update): the schedule
+                # position for resume_schedule
+                meta = {"gelu_approximate":
+                        bool(config.student.gelu_approximate),
+                        "epoch": epoch, "plateau": plateau_meta()}
+                if ckpt_saver is not None:
+                    ckpt_saver.save(path, train_state_tree(state),
+                                    on_done=prune, meta=meta)
+                else:
+                    save_checkpoint(path, train_state_tree(state),
+                                    meta=meta)
+                    prune()
+    finally:
+        if guard is not None:
+            guard.restore()
+
+    if ckpt_saver is not None:
+        ckpt_saver.wait()  # the last epoch's background write
+        history["ckpt_wait_s"] = ckpt_saver.wait_s
+        history["ckpt_snapshot_s"] = ckpt_saver.snapshot_s
+    if not preempted:
+        # the reclaim grace window is for the checkpoint, not a test epoch
+        test_bleu, history["test_outputs"] = evaluate(
+            student, test_loader, tokenizer, logger, epochs, "Test",
+            annotations=annotations, beam_size=config.train.eval_beam_size)
+        history["test_loss"] = test_bleu
+    else:
+        history["test_loss"] = None
+    history["timing"] = timer.summary() if timer.durations else {}
+    # one mean step time an epoch: epoch 1 against 2 shows the caches
+    history["epoch_step_ms"] = [d * 1e3 for d in timer.durations]
+    if teacher_cache is not None:
+        history["teacher_cache"] = teacher_cache.stats()
+    if teacher_beam_cache is not None:
+        history["teacher_beam_cache"] = teacher_beam_cache.stats()
+    logger.finish()
+    return state, history
+
+
+def main(argv: Optional[List[str]] = None):
+    """``python -m rtvc_tpu_torch.train`` (reference ``python3 -m
+    src.train``, train.py:160): trains the config's student, with random
+    weights, against the config's teacher on the MSRVTT-format data the
+    config's paths name (relative to the working directory), into
+    ``<save_dir>/run/<%y%m%d_%H%M%S>``. Returns ``train()``'s (state,
+    history)."""
+    import argparse
+
+    from .data.dataset import CaptionDataset, DeviceLoader, load_labels
+    from .tokenization import BertWordPieceTokenizer
+
+    parser = argparse.ArgumentParser(prog="rtvc_tpu_torch.train")
+    parser.add_argument("--multihost", action="store_true",
+                        help=f"train over several processes ({MULTI_CARD})")
+    parser.add_argument("--resume", metavar="CKPT", default=None,
+                        help="checkpoint to restore (params, optimizer "
+                             "state, step) before training")
+    parser.add_argument("--resume-schedule", action="store_true",
+                        help="with --resume: complete the original "
+                             "max_epochs schedule from the checkpoint's "
+                             "recorded position (a ckpt_preempt redoes the "
+                             "interrupted epoch from its first untrained "
+                             "batch) instead of training max_epochs more")
+    parser.add_argument("--device", default="cuda",
+                        help="the card to train on (cpu for a run without "
+                             "one)")
+    args = parser.parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError(f"--multihost {MULTI_CARD}")
+
+    config = default_cfg
+    try:
+        data, encoded = load_labels(config.data.captions_path,
+                                    config.data.encoded_caption_ids)
+    except FileNotFoundError as e:
+        print(f"training data not found ({e}); see README for data setup",
+              file=sys.stderr)
+        sys.exit(1)
+
+    splits = {}
+    for split in ("train", "validate", "test"):
+        # every split's caption choice is seeded: the video→caption pairing
+        # is fixed for the run, which makes the teacher caches exact
+        ds = CaptionDataset(config.data.videos_path, data.video_ids(split),
+                            data, encoded, num_frames=config.data.num_frames,
+                            random_state=config.seed)
+        splits[split] = DeviceLoader(
+            ds, config.train.batch_size, shuffle=(split == "train"),
+            seed=config.seed, drop_last=(split == "train"),
+            prefetch_depth=config.data.prefetch_depth, device=args.device)
+
+    annotations = None
+    if config.data.annotation_path and \
+            os.path.exists(config.data.annotation_path):
+        annotations = metrics_lib.load_coco_annotations(
+            config.data.annotation_path)
+
+    run_name = time.strftime("%y%m%d_%H%M%S")
+    return train(config, splits["train"], splits["validate"], splits["test"],
+                 BertWordPieceTokenizer(), run_name=run_name,
+                 annotations=annotations, resume_from=args.resume,
+                 resume_schedule=args.resume_schedule,
+                 teacher_cache=config.train.teacher_cache_dir or None,
+                 teacher_beam_cache=config.train.teacher_beam_cache_dir
+                 or None, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

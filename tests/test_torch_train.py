@@ -55,6 +55,16 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def config_from(overrides, base=None) -> pconfig.Config:
+    """The port's Config with a nested dict of field overrides, as
+    ``rtvc_tpu.config.from_dict`` builds JAX's."""
+    def merge(dc, over):
+        return dataclasses.replace(dc, **{
+            k: merge(getattr(dc, k), v) if isinstance(v, dict) else v
+            for k, v in over.items()})
+    return merge(base or pconfig.Config(), overrides)
+
+
 def _rel_close(got, want, tol, what=""):
     got, want = float(got), float(want)
     assert abs(got - want) <= tol * max(1.0, abs(want)), (what, got, want)
@@ -348,15 +358,24 @@ def test_train_step_learns_with_dropout(step_pair):
         assert torch.equal(p_model, master)
 
 
-def test_make_train_step_refuses_what_is_not_ported(step_pair):
+def test_make_train_step_refuses_what_is_not_ported(step_pair, tmp_path):
+    """The beam-KD losses and replayed teacher outputs are ported
+    (tests/test_torch_train_loop.py holds them against JAX): the step
+    builds for each. A device mesh is not: ``train()`` refuses it, naming
+    its ROADMAP item."""
     p = step_pair
     student = _port_student(p["variables"])
     opt = train.Adam()
     for kw in (dict(weights=distill.LossWeights(ce_teacher=1.0)),
                dict(weights=distill.LossWeights(kd_source="beam_consensus")),
                dict(external_teacher_logits=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.make_train_step(student, p["pteacher"], opt, **kw)
+        assert callable(train.make_train_step(student, p["pteacher"], opt,
+                                              **kw))
+    config = config_from({"logger": {"save_dir": str(tmp_path)},
+                          "compute_dtype": "float32"})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.train(config, [], [], [], None, student=student,
+                    teacher=p["pteacher"], mesh=object(), device="cpu")
 
 
 def test_create_train_state_keeps_float32_masters():
@@ -459,6 +478,17 @@ def test_dropout_needs_a_cpu_generator():
 def test_train_config_equals_jax():
     jcfg = jconfig.Config()
     ours = dataclasses.asdict(pconfig.TrainConfig())
-    assert ours == {k: getattr(jcfg.train, k) for k in ours}
+    theirs = dataclasses.asdict(jcfg.train)
+    trainer = ours.pop("trainer")
+    assert trainer == {k: theirs["trainer"][k] for k in trainer}
+    assert set(trainer) == {"max_epochs", "precision",
+                            "enable_checkpointing"}
+    assert ours == {k: theirs[k] for k in ours}
+    assert set(theirs) - set(ours) - {"trainer"} == {
+        "student_model_def", "teacher_model_def"}
+    assert pconfig.CallbackConfig().save_top_k == jcfg.callback.save_top_k
+    assert dataclasses.asdict(pconfig.WandbConfig()) == dataclasses.asdict(
+        jcfg.wandb)
+    assert pconfig.Config().remat_encoder == jcfg.tpu.remat_encoder
     assert pconfig.Config().train == pconfig.TrainConfig()
     assert pconfig.Config().compute_dtype == jcfg.tpu.compute_dtype
