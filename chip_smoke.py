@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's caption step and its server, its evaluation
-path, frozen teacher, distillation train step and training loop once on an
-NVIDIA GPU.
+path, frozen teacher (also in the input-dtype softmax, with its sampled
+beam and ``teacher_generate``), distillation train step and training loop
+once on an NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -11,8 +12,8 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile ``rtvc_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``build/`` and load it; count the tensor-core instructions of the bf16
-   K1, K3, K4/K5 and K8 kernels and the int8 K7 in its SASS (a wait after
-   every warpgroup product fails);
+   K1, K3, K4/K5, K4n, K8 and K8n kernels and the int8 K7 in its SASS (a
+   wait after every warpgroup product fails);
 3. kernels: K1 (window attention), K2 (LayerNorm) and K3 (int8 GEMV,
    with a warm and a cold L2, beside the bf16 projection it replaces) at
    the caption step's shapes, K2 and K3 also at the beam's B·k rows, K2,
@@ -25,9 +26,18 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    (bf16 K8's yardstick, SDPA's backward, the median of three); and the
    edge cases of K7, K9 and the bf16 tensor-core K1, K4/K5 and K8, and K1
    and K2 at the eval phase's ragged last batch (K2 at its decoder and
-   TinyViT rows), for correctness only. Then K8's one caller, the gradient
-   of ``flash_attention`` through autograd, runs once at the joint shape
-   with dropout, launch counts reset before and read after;
+   TinyViT rows), for correctness only. K4n and K8n, K4 and K8 in the
+   input-dtype softmax (JAX's ``softmax_native``), run K4's joint,
+   key-masked, dropout and beam-prefill cases (edges: a fully masked batch
+   row, a ragged length) and K8's joint, key-masked ragged and dropout
+   cases, each held to the bf16 limit and to a discriminating gate (its
+   mean error below half the mode-off plain version's mean distance from
+   the mode's plain version, which the limit alone cannot tell apart) and
+   timed beside the mode-off kernel. Then K8's one caller, the gradient of
+   ``flash_attention`` through autograd, runs once at the joint shape with
+   dropout, in both softmax modes, launch counts reset before and read
+   after; float32 with the mode on must give the mode-off bits; K6's
+   gradient under autograd at [12336, 1024] is held to its bf16 limit;
 4. slice: the full-width student (random weights from a seeded generator,
    bfloat16) serves 8 distinct 480×640 6-frame windows at batch 1 and as
    one batch of 8, through the default and the ``vocab_int8`` caption
@@ -76,6 +86,16 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    same input. Then, in float32 with TF32 off, a depth-cut teacher (2 CLIP
    blocks, 2 joint layers, full widths) on the card is held against the
    same model on the CPU;
+7b. generate: the same teacher with ``set_softmax_native_pallas(True)``
+   (turned off again in a ``finally``): the forward (every K4 launch a K4n
+   launch; its logits' distance from the mode-off forward's reported), the
+   sampled beam (``do_sample``, temperature 1, top-k 50, top-p 0.9, batch
+   2 × 4 beams × 15 steps: one generator seed gives one row set twice,
+   another seed another; rows SOS first and EOS-padded), the exact beam
+   and ``teacher_generate`` (JAX's keys, ``output`` ``[1, n, 30522]``,
+   ``cap`` the tokenizer's decode of its row), each timed with CUDA events
+   and its launches counted; then the depth-cut f32 teacher's sampled beam,
+   card vs CPU from one CPU generator (first-token divergence reported);
 8. train: the full-width student (bfloat16 compute over float32 master
    weights) and the full-width teacher run 5 steps of the default
    ``make_train_step`` (kl + ce, dropout 0.3, DropPath, Adam at lr 1e-4)
@@ -150,6 +170,7 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLOOR_ONE_TOL = {("layer_norm", "float32"): 2e-5}
 OWN_SCALE_TOL = {("window_attention", "bfloat16"): 2 ** -7,
                  ("flash_attention_bwd", "bfloat16"): 2e-2,
+                 ("flash_attention_bwd_native", "bfloat16"): 2e-2,
                  ("w8a8_matmul", "float32"): 0.0,
                  ("w8a8_matmul", "bfloat16"): 0.0}
 # the kernels that must give the same bits on every run: each of their
@@ -196,7 +217,15 @@ KERNELS = {
                             "rtvc_tpu/ops/attention.py:452"),
     "dw3x3_wgrad": ("rtvc_tpu_torch/csrc/depthwise_wgrad.cu",
                     "rtvc_tpu/ops/depthwise.py:90"),
+    # K4 and K8 in the input-dtype softmax (_block_probs' softmax_native)
+    "flash_attention_native": ("rtvc_tpu_torch/csrc/flash_attention_sm90.cu",
+                               "rtvc_tpu/ops/attention.py:136"),
+    "flash_attention_bwd_native": (
+        "rtvc_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+        "rtvc_tpu/ops/attention.py:136"),
 }
+# the sampled teacher beam of the generate phase
+SAMPLE = dict(do_sample=True, temperature=1.0, top_k=50, top_p=0.9)
 TRAIN_STEPS = 5
 DROPOUT_SEED = 12345
 
@@ -267,8 +296,10 @@ def device_ms(fn, reps: int, warmup: int = 2) -> tuple:
 # after its length prefix; K1's, K7's and K8's carry their own words.
 SASS_FAMILIES = {
     "K4/K5": (r"\dattention_sm90_kernel", "HGMMA"),
+    "K4n": (r"attention_native_sm90_kernel", "HGMMA"),
     "K1": (r"window_attention_sm90_kernel", "HMMA"),
     "K8 dQ": (r"attention_bwd_dq_sm90_kernel", "HGMMA"),
+    "K8n dQ": (r"attention_bwd_dq_native_sm90_kernel", "HGMMA"),
     "K8 dK/dV": (r"attention_bwd_dkv_sm90_kernel", "HGMMA"),
     "K7": (r"w8a8_sm90_kernel", "IGMMA"),
     "K3": (r"w8_matmul_tc_kernel", "HMMA"),
@@ -312,6 +343,18 @@ def rel_err(got, want, floor: float = 1.0) -> tuple:
     """(max |got - want|, that divided by max(floor, max |want|))."""
     err = float((got.float() - want.float()).abs().max())
     return err, err / max(floor, float(want.float().abs().max()))
+
+
+def native_gate(got, want, off) -> tuple:
+    """The input-dtype softmax's discriminating gate, beside its bf16
+    limit (which a kernel ignoring the mode would pass: the two modes lie
+    within 2e-2 of each other): (passes, mean |got - want|, mean |off -
+    want|), ``want`` the mode's plain version, ``off`` the mode-off plain
+    version on the same inputs. It passes where the first mean is below
+    half the second."""
+    err = float((got.float() - want.float()).abs().mean())
+    gap = float((off.float() - want.float()).abs().mean())
+    return err < 0.5 * gap, err, gap
 
 
 def limit(name: str, dtype: str) -> tuple:
@@ -387,6 +430,25 @@ def kernel_cases(dev, g):
         add("flash_attention", label, reps, attention.flash_attention,
             attention.flash_attention_plain, args, kw, Y.flash_work,
             Y.flash_library)
+
+    def native_mode(name, label, args, kw, reps):
+        """K4n or K8n (``name``) in the input-dtype softmax against the
+        mode's plain version; beside it the mode-off plain version (the
+        discriminating gate's reference) and the mode-off kernel (timed
+        beside). The bound is the function's own work, as K4's or K8's."""
+        fwd = name == "flash_attention_native"
+        kern = attention.flash_attention if fwd else \
+            attention.flash_attention_bwd
+        plain = attention.flash_attention_plain if fwd else \
+            attention.flash_attention_bwd_plain
+        add(name, label, reps,
+            functools.partial(kern, softmax_in_input_dtype=True),
+            functools.partial(plain, softmax_in_input_dtype=True), args, kw,
+            Y.flash_work if fwd else Y.flash_bwd_work,
+            Y.flash_library if fwd else Y.flash_bwd_library)
+        cases[-1].update(
+            off=lambda: plain(*args, **kw),
+            off_kern=lambda: kern(*args, softmax_in_input_dtype=False, **kw))
 
     def w8_cold(label, variants, replaced):
         """K3 with a cold L2: each call of the kernel, its plain version
@@ -650,6 +712,34 @@ def kernel_cases(dev, g):
             flash(f"{dn} beam prefill [{b},{h},{prefix},{d}]",
                   packed_heads(b, prefix, h, d, dtype),
                   dict(causal=True, prefix_len=prefix))
+            # K4n and K8n, the input-dtype softmax: K4's joint, key-masked
+            # (its last batch row with every key masked), dropout and beam
+            # prefill cases, then a fully masked batch row and a ragged
+            # length (correctness only); K8's joint, key-masked ragged and
+            # dropout cases
+            fa, fb = "flash_attention_native", "flash_attention_bwd_native"
+            mode = native_mode
+            mode(fa, f"{dn} joint [{b},{h},{lq},{d}] prefix {prefix}", heads,
+                 joint, 10)
+            mode(fa, f"{dn} key-masked [{b},{h},{lq},{d}]", heads,
+                 dict(joint, kv_mask=mask), 10)
+            mode(fa, f"{dn} dropout 0.1 joint [{b},{h},{lq},{d}]", heads,
+                 dict(joint, **drop), 10)
+            mode(fa, f"{dn} beam prefill [{b},{h},{prefix},{d}]",
+                 packed_heads(b, prefix, h, d, dtype),
+                 dict(causal=True, prefix_len=prefix), 10)
+            mode(fa, f"{dn} edge: fully masked batch row [2,3,200x333,{d}]",
+                 odd, dict(kv_mask=omask), 10)
+            mode(fa, f"{dn} edge: Lq=200 Lkv=333 [2,3,200x333,{d}] prefix "
+                     f"150", odd, dict(causal=True, prefix_len=150), 10)
+            g_joint = rand(b, h, lq, d, dtype=dtype)
+            mode(fb, f"{dn} joint [{b},{h},{lq},{d}] prefix {prefix}",
+                 heads + (g_joint,), joint, 3)
+            mode(fb, f"{dn} key-masked ragged [2,{h},1000x1037,{d}] prefix "
+                     f"900", ragged + (rand(2, h, 1000, d, dtype=dtype),),
+                 dict(causal=True, prefix_len=900, kv_mask=rmask), 3)
+            mode(fb, f"{dn} dropout 0.1 joint [{b},{h},{lq},{d}]",
+                 heads + (g_joint,), dict(joint, **drop), 3)
         rows = WINDOWS * FRAMES * 257
         joint_rows = WINDOWS * lq
         for width, n, eps in ((1024, rows, 1e-5), (768, joint_rows, 1e-12)):
@@ -747,6 +837,21 @@ def kernel_phase(dev):
             line += f" second run {'bitwise equal' if same else 'DIFFERS'}"
             rec.update(bitwise_repeat=same)
             ok = ok and same
+        if "off" in c:
+            # the discriminating gate: the bf16 limit alone would pass a
+            # kernel that ignored the mode
+            off = c["off"]()
+            gates = [native_gate(a, b, o) for (a, b), o in zip(
+                pairs, off if isinstance(off, tuple) else (off,))]
+            passed = all(gt[0] for gt in gates)
+            line += (" gate " + "/".join(f"{gt[1]:.2e}<{gt[2] / 2:.2e}"
+                                         for gt in gates)
+                     + (" ok" if passed else " FAIL"))
+            rec.update(gate_mean_err=[gt[1] for gt in gates],
+                       gate_mean_off_gap=[gt[2] for gt in gates],
+                       gate_passed=passed)
+            ok = ok and passed
+            del off
         del got, want, pairs
         if "edge:" in label:
             log(f"{line} correctness only {'ok' if ok else 'FAIL'}")
@@ -760,6 +865,11 @@ def kernel_phase(dev):
             lib_ms, lib_call, lib_timing, lib_runs = library_ms(
                 c["library"](), reps, samples)
             bound_s, bound_by = c["work"].bound()
+            if "off_kern" in c:
+                # the mode-off kernel on the same inputs, timed beside
+                off_ms, _ = device_ms(c["off_kern"], reps)
+                line += f" mode-off kernel {off_ms * 1e3:.2f} us"
+                rec.update(off_kernel_ms=off_ms)
             lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
             if len(lib_runs) > 1:
                 lib += " (median of " + ", ".join(
@@ -793,12 +903,14 @@ def kernel_phase(dev):
     return records
 
 
-def flash_grad_path(dev) -> dict:
+def flash_grad_path(dev, native: bool = False) -> dict:
     """K8's caller: ``flash_attention(...).backward()`` at the joint shape,
     bf16, dropout 0.1 drawn from a CPU generator. Launch counts are reset
     before and read after; K4 and K8 must launch once each, and the
     gradients must equal ``flash_attention_bwd_plain`` with the same seed
-    (the seed is the generator's next draw)."""
+    (the seed is the generator's next draw). With ``native``, in the
+    input-dtype softmax: K4n and K8n must launch once each, K4 and K8 not,
+    and the gradients must also pass the discriminating gate."""
     import torch
     from rtvc_tpu_torch.ops import attention
     from rtvc_tpu_torch.ops.dropout import draw_seed
@@ -813,20 +925,113 @@ def flash_grad_path(dev) -> dict:
     reset_counts()
     attention.flash_attention(
         *leaves, generator=torch.Generator().manual_seed(SEED + 6),
-        **kw).backward(go)
+        softmax_in_input_dtype=native, **kw).backward(go)
     torch.cuda.synchronize()
     launched = counts()
-    want = attention.flash_attention_bwd_plain(q, k, v, go, seed=seed, **kw)
-    tol, floor = limit("flash_attention_bwd", "bfloat16")
+    want = attention.flash_attention_bwd_plain(
+        q, k, v, go, seed=seed, softmax_in_input_dtype=native, **kw)
+    suffix = "_native" if native else ""
+    tol, floor = limit("flash_attention_bwd" + suffix, "bfloat16")
     err = max(rel_err(t.grad, w, floor)[1] for t, w in zip(leaves, want))
-    log(f"  flash_attention autograd, dropout 0.1: launches {launched}, "
-        f"grads vs plain {err:.3e} of max|plain| (tol {tol:g})")
-    check_launches("flash_attention autograd", launched,
-                   {"flash_attention": 1, "flash_attention_bwd": 1})
-    if not err <= tol:
-        raise AssertionError("flash_attention gradients disagree with "
-                             "flash_attention_bwd_plain")
+    gate = ""
+    passed = True
+    if native:
+        off = attention.flash_attention_bwd_plain(q, k, v, go, seed=seed,
+                                                  **kw)
+        gates = [native_gate(t.grad, w, o)
+                 for t, w, o in zip(leaves, want, off)]
+        passed = all(gt[0] for gt in gates)
+        gate = ", gate " + "/".join(f"{gt[1]:.2e}<{gt[2] / 2:.2e}"
+                                    for gt in gates)
+    label = "flash_attention autograd" + (" (input-dtype softmax)"
+                                          if native else "")
+    log(f"  {label}, dropout 0.1: launches {launched}, grads vs plain "
+        f"{err:.3e} of max|plain| (tol {tol:g}){gate}")
+    want_launches = {"flash_attention" + suffix: 1,
+                     "flash_attention_bwd" + suffix: 1}
+    if native:
+        want_launches.update(flash_attention=0, flash_attention_bwd=0)
+    check_launches(label, launched, want_launches)
+    if not (err <= tol and passed):
+        raise AssertionError(f"{label}: gradients disagree with "
+                             f"flash_attention_bwd_plain")
     return launched
+
+
+def native_f32_check(dev) -> dict:
+    """The input-dtype softmax is a no-op for float32, as JAX demotes it:
+    at the joint shape with dropout 0.1, ``flash_attention`` with the mode
+    on gives the mode-off call's output and gradients bit for bit, and
+    launches K4 and K8, not K4n and K8n."""
+    import torch
+    from rtvc_tpu_torch.ops import attention
+    g = torch.Generator().manual_seed(SEED + 7)
+    b, h, lq, d = WINDOWS, 12, FRAMES * 257 + CAPTION_LEN, 64
+    q, k, v, go = (torch.randn(b, h, lq, d, generator=g).to(dev)
+                   for _ in range(4))
+    kw = dict(causal=True, prefix_len=FRAMES * 257, dropout_rate=0.1,
+              seed=DROPOUT_SEED)
+    runs = []
+    for native in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        reset_counts()
+        out = attention.flash_attention(*leaves, softmax_in_input_dtype=native,
+                                        **kw)
+        out.backward(go)
+        torch.cuda.synchronize()
+        runs.append(([out.detach()] + [t.grad for t in leaves], counts()))
+    same = all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    log(f"  float32 with the input-dtype softmax on: output and gradients "
+        f"{'bitwise equal to' if same else 'DIFFER from'} the mode off; "
+        f"launches {runs[1][1]}")
+    check_launches("float32 with the mode on", runs[1][1], {
+        "flash_attention": 1, "flash_attention_bwd": 1,
+        "flash_attention_native": 0, "flash_attention_bwd_native": 0})
+    if not same:
+        raise AssertionError("float32 flash_attention with the input-dtype "
+                             "softmax differs from the mode off")
+    return {"native_f32_bitwise_equal": same}
+
+
+def add_ln_grad_check(dev) -> dict:
+    """K6 under autograd at the CLIP tower's [12336, 1024], bf16: (dx,
+    ddelta, dweight, dbias) of ``fused_add_layer_norm`` (the kernel
+    forward, launched once, and the closed-form backward) against
+    ``fused_add_layer_norm_bwd_plain`` of the plain forward's rounded sum,
+    at K6's bf16 limit."""
+    import torch
+    from rtvc_tpu_torch.ops import layernorm
+    g = torch.Generator().manual_seed(SEED + 8)
+    rows, width = WINDOWS * FRAMES * 257, 1024
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(
+            dev, torch.bfloat16)
+    x, delta, gy, gh = (rand(rows, width, scale=2.0) for _ in range(4))
+    w, b = rand(width), rand(width)
+    leaves = [t.clone().requires_grad_() for t in (x, delta, w, b)]
+    torch.cuda.synchronize()
+    reset_counts()
+    y, hn = layernorm.fused_add_layer_norm(*leaves)
+    torch.autograd.backward((y, hn), (gy, gh))
+    torch.cuda.synchronize()
+    launched = counts()
+    y_plain, _ = layernorm.fused_add_layer_norm_plain(x, delta, w, b)
+    want = layernorm.fused_add_layer_norm_bwd_plain(y_plain, w, gy, gh)
+    tol, floor = limit("fused_add_layer_norm", "bfloat16")
+    errs = [rel_err(t.grad, wt, floor) for t, wt in zip(leaves, want)]
+    log(f"  fused_add_layer_norm autograd [{rows},{width}] bf16: launches "
+        f"{launched['fused_add_layer_norm']}, (dx, ddelta, dweight, dbias) "
+        f"vs plain " + ", ".join(f"{r:.3e}" for _, r in errs)
+        + f" of max(1, max|plain|) (tol {tol:g})")
+    check_launches("fused_add_layer_norm autograd", launched,
+                   {"fused_add_layer_norm": 1})
+    if not all(r <= tol for _, r in errs):
+        raise AssertionError("K6's gradients disagree with "
+                             "fused_add_layer_norm_bwd_plain")
+    return {"add_ln_grad_rel_err": [r for _, r in errs],
+            "add_ln_grad_max_abs_err": [e for e, _ in errs]}
 
 
 # ---------------------------------------------------------------------------
@@ -884,13 +1089,25 @@ def wrappers() -> dict:
             "dw3x3_wgrad": depthwise.dw3x3_wgrad}
 
 
+def counters() -> dict:
+    """Each kernel's (wrapper, its count's attribute), by the kernel's name
+    in KERNELS: K4n and K8n count on K4's and K8's wrappers."""
+    out = {name: (fn, "launches") for name, fn in wrappers().items()}
+    out["flash_attention_native"] = (out["flash_attention"][0],
+                                     "native_launches")
+    out["flash_attention_bwd_native"] = (out["flash_attention_bwd"][0],
+                                         "native_launches")
+    return out
+
+
 def counts() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in counters().items()}
 
 
 def reset_counts() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def serve(student, windows, vocab_int8: bool, beam: int = 0):
@@ -1815,6 +2032,200 @@ def teacher_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the teacher in the input-dtype softmax, sampled beam, generate
+# ---------------------------------------------------------------------------
+
+def check_beam_rows(label: str, preds, vocab: int) -> None:
+    """Beam rows ``[BEAM_BATCH, BEAM_STEPS]``, int32: SOS first, every id
+    in the vocabulary, and EOS from a row's first EOS on (its padding)."""
+    import torch
+    check_tensor(label, preds.float(), (BEAM_BATCH, BEAM_STEPS))
+    sos, eos = 101, 102
+    if preds.dtype != torch.int32 or not bool((preds[:, 0] == sos).all()):
+        raise AssertionError(f"{label}: rows {preds.tolist()}")
+    if not bool(((preds >= 0) & (preds < vocab)).all()):
+        raise AssertionError(f"{label}: ids out of range")
+    for row in preds.tolist():
+        if eos not in row[1:]:
+            raise AssertionError(f"{label}: a row without EOS {row}")
+        first = row.index(eos, 1)
+        if any(t != eos for t in row[first:]):
+            raise AssertionError(f"{label}: no EOS padding in {row}")
+
+
+def generate_f32_check(frames, dev) -> dict:
+    """The depth-cut float32 teacher (2 CLIP blocks, 2 joint layers, full
+    widths, TF32 off) runs the sampled beam on the card and on the CPU with
+    the same CPU-generator noise; the share of rows whose first token
+    differs is reported, not gated (random weights give near-flat logits,
+    where the two devices' sums in another order can swap a sample)."""
+    import torch
+    from rtvc_tpu_torch.config import GITConfig, clip_vit_l14_config
+    from rtvc_tpu_torch.decode import teacher_beam
+    from rtvc_tpu_torch.models.git_teacher import GITTeacher, random_init_
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(SEED + 2)
+    cut = GITConfig(clip=clip_vit_l14_config(layers=2), num_layers=2)
+    cpu_model = random_init_(GITTeacher(cut), g).eval()
+    card = copy.deepcopy(cpu_model).to(dev)
+    fr = frames[:BEAM_BATCH].float().cpu()
+    rows = {}
+    for where, model, x in (("card", card, fr.to(dev)),
+                            ("cpu", cpu_model, fr)):
+        rows[where] = teacher_beam(
+            model, x, beam_size=BEAMS, max_steps=BEAM_STEPS,
+            generator=torch.Generator().manual_seed(SEED), **SAMPLE
+        ).predictions.cpu()
+    div = first_token_divergence(rows["card"], rows["cpu"])
+    same = torch.equal(rows["card"], rows["cpu"])
+    log(f"  f32 sampled beam, card vs cpu: first-token divergence {div:.3f}"
+        f", rows {'equal' if same else 'differ'} (reported, not gated)")
+    return {"f32_sampled_first_token_divergence": div,
+            "f32_sampled_rows_equal": same}
+
+
+def generate_phase(dev, exact_beam_ms: float) -> dict:
+    """The teacher phase's full-width bf16 teacher (the same seed, weights
+    and windows) with ``set_softmax_native_pallas(True)``: the forward, the
+    sampled and the exact beam and ``teacher_generate`` in the input-dtype
+    softmax, every K4 launch a K4n launch; then the f32 card-vs-CPU sampled
+    beam. The switch is turned off again whatever happens."""
+    import torch
+    from rtvc_tpu_torch.config import cfg
+    from rtvc_tpu_torch.decode import teacher_beam, teacher_generate
+    from rtvc_tpu_torch.models.git_teacher import (random_init_,
+                                                   teacher_from_config)
+    from rtvc_tpu_torch.ops import attention
+    from rtvc_tpu_torch.ops.preprocess import clip_preprocess
+    from rtvc_tpu_torch.tokenization import BertWordPieceTokenizer
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    teacher = random_init_(teacher_from_config(cfg, device=dev), g).eval()
+    tc = teacher.config
+    blocks, joint, vocab = tc.clip.layers, tc.num_layers, tc.vocab_size
+    windows = make_windows(g).to(dev)
+    frames = clip_preprocess(windows.reshape((-1,) + windows.shape[2:]))
+    frames = frames.reshape((WINDOWS, FRAMES) + frames.shape[1:])
+    captions = torch.randint(1000, vocab, (WINDOWS, CAPTION_LEN),
+                             generator=g)
+    captions[:, 0] = 101
+    captions = captions.to(dev)
+    result = {"launches": dict(KERNEL_ZERO)}
+
+    def add(launched):
+        for k, n in launched.items():
+            result["launches"][k] += n
+
+    def forward():
+        return teacher.forward_output_logits(frames, captions)[0].float()
+
+    encode = {"blhd_attention": blocks, "fused_add_layer_norm": blocks,
+              "flash_attention": 0, "flash_attention_native": joint}
+
+    def beam_launches(steps):
+        return dict(encode, layer_norm=blocks + 2 + (1 + 2 * joint)
+                    * (1 + steps))
+
+    with torch.inference_mode():
+        off, off_ms, _ = timed_run("forward, f32 softmax", forward)
+    attention.set_softmax_native_pallas(True)
+    try:
+        with torch.inference_mode():
+            on, on_ms, launched = timed_run("forward, bf16 softmax", forward)
+        check_launches("forward in the input-dtype softmax", launched, dict(
+            encode, layer_norm=blocks + 4 + 2 * joint))
+        add(launched)
+        check_tensor("logits in the input-dtype softmax", on,
+                     (WINDOWS, CAPTION_LEN, vocab))
+        delta = (on - off).abs()
+        agree = float((on.argmax(-1) == off.argmax(-1)).float().mean())
+        log(f"  logits, bf16 vs f32 softmax: max delta "
+            f"{float(delta.max()):.4e}, mean {float(delta.mean()):.4e}, "
+            f"argmax agreement {agree:.4f}")
+        result.update(forward_native_ms=on_ms, forward_off_ms=off_ms,
+                      logits_max_delta=float(delta.max()),
+                      logits_mean_delta=float(delta.mean()),
+                      argmax_agreement=agree)
+        del off, on, delta
+
+        def sampled(seed):
+            return teacher_beam(
+                teacher, frames[:BEAM_BATCH], beam_size=BEAMS,
+                max_steps=BEAM_STEPS,
+                generator=torch.Generator().manual_seed(seed), **SAMPLE)
+
+        first, samp_ms, launched = timed_run("sampled beam",
+                                             lambda: sampled(SEED))
+        check_launches("sampled beam", launched,
+                       beam_launches(first.num_steps))
+        add(launched)
+        again, other = sampled(SEED), sampled(SEED + 1)
+        check_beam_rows("sampled beam", first.predictions, vocab)
+        check_beam_rows("sampled beam, second seed", other.predictions,
+                        vocab)
+        if not torch.equal(first.predictions, again.predictions):
+            raise AssertionError("sampled beam: one seed, two row sets")
+        if torch.equal(first.predictions, other.predictions):
+            raise AssertionError("sampled beam: two seeds, one row set")
+        log(f"  sampled beam {first.num_steps} steps, rows "
+            f"{first.predictions.tolist()}; seed {SEED + 1}: "
+            f"{other.predictions.tolist()}")
+
+        with torch.inference_mode():
+            exact, ex_ms, launched = timed_run("exact beam", lambda: (
+                teacher_beam(teacher, frames[:BEAM_BATCH], beam_size=BEAMS,
+                             max_steps=BEAM_STEPS)))
+        check_launches("exact beam", launched, beam_launches(exact.num_steps))
+        add(launched)
+        check_beam_rows("exact beam", exact.predictions, vocab)
+
+        tok = BertWordPieceTokenizer()
+        torch.cuda.synchronize()
+        reset_counts()
+        gen = teacher_generate(teacher, frames[:BEAM_BATCH], tok,
+                               beam_size=BEAMS, max_steps=BEAM_STEPS)
+        torch.cuda.synchronize()
+        launched = counts()
+        add(launched)
+        if launched["flash_attention_native"] != joint or launched[
+                "flash_attention"]:
+            raise AssertionError(f"teacher_generate launches {launched}")
+        if len(gen) != BEAM_BATCH:
+            raise AssertionError(f"teacher_generate: {len(gen)} results")
+        for r in gen:
+            if set(r) != {"predictions", "cap", "output", "logprobs"}:
+                raise AssertionError(f"teacher_generate keys {sorted(r)}")
+            n = min(len(r["cap"].split(" ")), BEAM_STEPS - 1)
+            check_tensor("teacher_generate output", r["output"],
+                         (1, r["output"].shape[1], vocab))
+            if (r["output"].device != frames.device
+                    or not 1 <= r["output"].shape[1] <= n
+                    or r["cap"] != tok.decode(r["predictions"])
+                    or not math.isfinite(r["logprobs"])):
+                raise AssertionError(
+                    f"teacher_generate result {r['cap']!r} "
+                    f"{tuple(r['output'].shape)} {r['logprobs']}")
+        log(f"  teacher_generate: caps {[r['cap'] for r in gen]}, outputs "
+            f"{[tuple(r['output'].shape) for r in gen]}")
+    finally:
+        attention.set_softmax_native_pallas(False)
+    log(f"  times (CUDA events): forward b{WINDOWS} bf16 softmax {on_ms:.3f}"
+        f" ms vs f32 softmax {off_ms:.3f} ms; beam b{BEAM_BATCH}x{BEAMS} "
+        f"sampled {samp_ms:.3f} ms, exact {ex_ms:.3f} ms (bf16 softmax), "
+        f"exact {exact_beam_ms:.3f} ms (teacher phase, f32 softmax)")
+    result.update(sampled_beam_ms=samp_ms, exact_beam_native_ms=ex_ms,
+                  exact_beam_off_ms=exact_beam_ms,
+                  sampled_steps=first.num_steps,
+                  sampled_predictions=first.predictions.tolist(),
+                  generate_caps=[r["cap"] for r in gen])
+    del teacher
+    torch.cuda.empty_cache()
+    result.update(generate_f32_check(frames, dev))
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the distillation train step
 # ---------------------------------------------------------------------------
 
@@ -2501,6 +2912,10 @@ def main(argv=None) -> int:
     log("[kernels] kernel vs plain on the card")
     records = kernel_phase(dev)
     grad_path = flash_grad_path(dev)
+    grad_path.update({k: n for k, n in flash_grad_path(dev, native=True)
+                      .items() if k.endswith("_native")})
+    extra = native_f32_check(dev)
+    extra.update(add_ln_grad_check(dev))
     log(f"[slice] full-width student, caption steps (kernel phase took "
         f"{time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
@@ -2521,8 +2936,13 @@ def main(argv=None) -> int:
         f"{ev['seconds']:.1f} s)")
     t0 = time.perf_counter()
     te = teacher_phase(dev)
+    log(f"[generate] the teacher in the input-dtype softmax: forward, "
+        f"sampled and exact beam, teacher_generate (teacher phase took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    gn = generate_phase(dev, te["beam_ms"])
     log(f"[train] distillation train step, full-width student and teacher "
-        f"(teacher phase took {time.perf_counter() - t0:.1f} s)")
+        f"(generate phase took {time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     tr = train_phase(dev)
     log(f"[loop] training loop, full width: live, logit cache, preempt and "
@@ -2546,7 +2966,9 @@ def main(argv=None) -> int:
                "fused_add_layer_norm": "bfloat16 [",
                "w8a8_matmul": "bfloat16 clip qkv",
                "flash_attention_bwd": "bfloat16 joint",
-               "dw3x3_wgrad": "bfloat16 stage0"}
+               "dw3x3_wgrad": "bfloat16 stage0",
+               "flash_attention_native": "bfloat16 joint",
+               "flash_attention_bwd_native": "bfloat16 joint"}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in records if r["name"] == name]
@@ -2554,7 +2976,8 @@ def main(argv=None) -> int:
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=sl["launches"][name] + sv["launches"][name]
                    + ev["launches"][name] + te["launches"][name]
-                   + tr["launches"][name] + lp["launches"][name],
+                   + gn["launches"][name] + tr["launches"][name]
+                   + lp["launches"][name],
                    max_abs_err=max(r["max_abs_err"] for r in mine),
                    ms=head["ms"], plain_ms=head["plain_ms"],
                    bound_ms=head["bound_us"] / 1e3,
@@ -2569,15 +2992,18 @@ def main(argv=None) -> int:
             row.update(warm_ms=warm["ms"],
                        replaced_ms=warm["replaced_us"] / 1e3,
                        replaced_call=warm["replaced_call"])
-        if name == "flash_attention_bwd":
+        if name in ("flash_attention_bwd", "flash_attention_bwd_native"):
             row.update(launches=grad_path[name],
                        launches_from="flash_attention autograd, kernel phase")
+        if "off_kernel_ms" in head:
+            row.update(mode_off_ms=head["off_kernel_ms"])
         kernels.append(row)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(device=smi, sass=sass, kernels=kernels,
-                           cases=records, slice=sl, serve=sv, eval=ev,
-                           teacher=te, train=tr, loop=lp), f,
+                           cases=records, grad_checks=extra, slice=sl,
+                           serve=sv, eval=ev, teacher=te, generate=gn,
+                           train=tr, loop=lp), f,
                       indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -30,8 +30,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _U = ctypes.c_uint
-# the dropout arguments of K4 and K8: seed, threshold, 1 - rate, on
-_DROPOUT = [_U, _U, _F, _I]
+# the dropout arguments of K4 and K8: seed, threshold, 1 - rate, on; then
+# the input-dtype softmax flag
+_DROPOUT = [_U, _U, _F, _I, _I]
 # C entry point -> argument types (every pointer and the stream as void*)
 SIGNATURES = {
     "rtvc_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,

@@ -545,23 +545,27 @@ int backward(const BwdArgs& a, int B, cudaStream_t stream) {
 }  // namespace rtvc
 
 // q/k/v/out indexed [b, h, row, d] through the given element strides (d
-// contiguous); kv_mask [B, Lkv] bytes or null; dropout on when `dropout`.
+// contiguous); kv_mask [B, Lkv] bytes or null; dropout on when `dropout`;
+// `native` (bfloat16 only) takes the input-dtype softmax, K4n.
 extern "C" int rtvc_flash_attention(
     const void* q, const void* k, const void* v, void* out,
     const void* kv_mask, int B, int H, int Lq, int Lkv, int D, long long qb,
     long long qh, long long ql, long long kb, long long kh, long long kl,
     long long vb, long long vh, long long vl, long long ob, long long oh,
     long long ol, float scale, int causal, int prefix_len, unsigned seed,
-    unsigned thresh, float keep, int dropout, int dtype, void* stream) {
+    unsigned thresh, float keep, int dropout, int native, int dtype,
+    void* stream) {
   if (rtvc::bad_shape(B, H, D, Lq, Lkv)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == rtvc::kBFloat16) {
     const rtvc::Sm90Attention a{
         q, k, v, out, static_cast<const uint8_t*>(kv_mask), B, H, Lq, Lkv, D,
         qb, qh, ql, kb, kh, kl, vb, vh, vl, ob, oh, ol, scale, causal,
-        prefix_len, seed, thresh, keep, dropout};
+        prefix_len, seed, thresh, keep, dropout, native};
     return rtvc::attention_sm90(a, s);
   }
+  // the input-dtype softmax is a no-op for float32 (the wrapper demotes it)
+  if (native) return (int)cudaErrorInvalidValue;
   const rtvc::Args a{q, k, v, out, static_cast<const uint8_t*>(kv_mask),
                      H, Lq, Lkv, D, qb, qh, ql, kb, kh, kl, vb, vh, vl,
                      ob, oh, ol, scale, causal, prefix_len,
@@ -582,7 +586,7 @@ extern "C" int rtvc_blhd_attention(
   if (dtype == rtvc::kBFloat16) {
     const rtvc::Sm90Attention a{
         q, k, v, out, nullptr, B, H, L, L, D, qb, qh, ql, kb, kh, kl, vb, vh,
-        vl, (long long)L * ol, D, ol, scale, 0, 0, 0u, 0u, 1.f, 0};
+        vl, (long long)L * ol, D, ol, scale, 0, 0, 0u, 0u, 1.f, 0, 0};
     return rtvc::attention_sm90(a, s);
   }
   const rtvc::Args a{q, k, v, out, nullptr, H, L, L, D, qb, qh, ql, kb, kh,
@@ -595,7 +599,8 @@ extern "C" int rtvc_blhd_attention(
 // contiguous); dq [B, H, Lq, D] and dk/dv [B, H, Lkv, D] contiguous in the
 // input dtype; stats a float32 scratch of 3 * B * H * ceil(Lq / 64) * 64
 // values. bfloat16 calls go to the tensor-core kernels of
-// flash_attention_bwd_sm90.cu, float32 calls to the two kernels above.
+// flash_attention_bwd_sm90.cu (K8n with `native`), float32 calls to the
+// two kernels above.
 extern "C" int rtvc_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g, void* dq,
     void* dk, void* dv, void* stats, const void* kv_mask, int B, int H,
@@ -603,7 +608,7 @@ extern "C" int rtvc_flash_attention_bwd(
     long long kb, long long kh, long long kl, long long vb, long long vh,
     long long vl, long long gb, long long gh, long long gl, float scale,
     int causal, int prefix_len, unsigned seed, unsigned thresh, float keep,
-    int dropout, int dtype, void* stream) {
+    int dropout, int native, int dtype, void* stream) {
   if (rtvc::bad_shape(B, H, D, Lq, Lkv)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == rtvc::kBFloat16) {
@@ -611,9 +616,10 @@ extern "C" int rtvc_flash_attention_bwd(
         q, k, v, g, dq, dk, dv, static_cast<float*>(stats),
         static_cast<const uint8_t*>(kv_mask), B, H, Lq, Lkv, D, qb, qh, ql,
         kb, kh, kl, vb, vh, vl, gb, gh, gl, scale, causal, prefix_len, seed,
-        thresh, keep, dropout};
+        thresh, keep, dropout, native};
     return rtvc::attention_bwd_sm90(a, s);
   }
+  if (native) return (int)cudaErrorInvalidValue;
   const rtvc::BwdArgs a{q, k, v, g, dq, dk, dv, static_cast<float*>(stats),
                         static_cast<const uint8_t*>(kv_mask), H, Lq, Lkv, D,
                         qb, qh, ql, kb, kh, kl, vb, vh, vl, gb, gh, gl,

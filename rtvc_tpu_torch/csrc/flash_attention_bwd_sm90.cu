@@ -56,6 +56,18 @@
 //   all of its products before the softmax arithmetic; the masks are
 //   selects, never a branch per score; tiles where every (row, key) is
 //   allowed take an unmasked arm.
+//
+// K8n: the same backward in the TPU kernel's input-dtype softmax
+// (_make_bwd_kernel with softmax_native, bf16 inputs): P and drop(P) are
+// K4n's bf16 probabilities (flash_attention_sm90.cu: bf16 scores, max and
+// exp, a float32 normaliser whose bf16 reciprocal multiplies each e), upcast
+// to float32; the rest is K8's math, dP of a kept key divided by the
+// float32 1 - rate. The row max is known only after a sweep, and Delta
+// needs the normaliser, so attention_bwd_dq_native_sm90_kernel sweeps the
+// keys four times: S for the max, S for the normaliser, S and dP for Delta,
+// S and dP for dS and dQ += dS K; its stats are (max, bf16(1 / z), Delta).
+// The dK/dV kernel serves both modes (kNative): P^T from those stats.
+// The bound counts the function's own five products, as K8's.
 
 #include "common.cuh"
 #include "flash_attention_sm90.cuh"
@@ -82,14 +94,16 @@ struct BwdArgs {
   uint32_t seed, thresh;
   float inv_keep;  // 1 / (1 - rate), or 1
   int q_head_inner, k_head_inner, v_head_inner, g_head_inner;
+  float keep;      // 1 - rate, or 1: K8n rounds it (and scale) to bf16
 };
 
 // the score x of (row, key), already in the log2 domain, as _block_probs
 // masks it; `kept` is the key mask's verdict
 __device__ __forceinline__ float masked(float x, int row, int key, bool kept,
-                                        const BwdArgs& a) {
+                                        const BwdArgs& a,
+                                        float sentinel = kMasked) {
   const bool ok = kept && (!a.causal || key < a.prefix_len || key <= row);
-  return key < a.Lkv ? (ok ? x : kMasked) : -INFINITY;
+  return key < a.Lkv ? (ok ? x : sentinel) : -INFINITY;
 }
 
 __device__ __forceinline__ bool dropped(const BwdArgs& a, int b, int h,
@@ -410,10 +424,216 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// Kernel 1n: K8n's dQ and row statistics, one block per (64 query rows,
+// batch x head): four sweeps over the keys (see the note at the top). The
+// producer streams K alone for the first two and K with V for the others.
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreads, 2)
+    attention_bwd_dq_native_sm90_kernel(
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tg, const BwdArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sG = sQ + kTile;
+  const uint32_t sK = sG + kTile;
+  const uint32_t sV = sK + kStages * kTile;
+  const uint32_t q_full = sV + kStages * kTile;
+  const uint32_t full0 = q_full + 8;
+  const uint32_t empty0 = full0 + 8 * kStages;
+
+  const int b = blockIdx.y / a.H;
+  const int h = blockIdx.y - b * a.H;
+  const int q0 = blockIdx.x * 64;
+  const int tiles = (a.Lkv + 63) / 64;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // ---- producer: Q and dO once, then K (sweeps 1-2), K and V (3-4) ----
+    if (lane == 0) {
+      mbar_expect_tx(q_full, 2 * kTile);
+      tma_rows(sQ, &tq, q_full, a.q_head_inner, q0, h, b);
+      tma_rows(sG, &tg, q_full, a.g_head_inner, q0, h, b);
+      for (int u = 0; u < 4 * tiles; ++u) {
+        const int s = u % kStages, t = u % tiles;
+        const bool with_v = u >= 2 * tiles;
+        mbar_wait(empty0 + 8 * s, ((u / kStages) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, with_v ? 2 * kTile : kTile);
+        tma_rows(sK + s * kTile, &tk, full0 + 8 * s, a.k_head_inner, t * 64,
+                 h, b);
+        if (with_v)
+          tma_rows(sV + s * kTile, &tv, full0 + 8 * s, a.v_head_inner,
+                   t * 64, h, b);
+      }
+    }
+    return;
+  }
+  // ---- consumer warpgroup: rows q0 + [0, 64) ----
+  QRows r;
+  r.row_min = q0;
+  r.row0 = q0 + 16 * warp + lane / 4;
+  r.row1 = r.row0 + 8;
+  r.cq = 2 * (lane % 4);
+  r.b = b;
+  r.h = h;
+  r.mask = a.kv_mask == nullptr ? nullptr : a.kv_mask + (size_t)b * a.Lkv;
+  const float scale_b = bf16r(a.scale);
+  uint64_t dq[4], dg[4], dk[4], dv[4];
+  float sc[32], dp[32], x[32], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f}, rz[2];
+  float delta[2] = {0.f, 0.f};
+  uint32_t dhi[16], dlo[16];
+  mbar_wait(q_full, 0);
+
+  // S (and with `with_dp` dP) of ring slot u, waited; the slot stays full
+  auto products = [&](int u, bool with_dp) {
+    const int s = u % kStages;
+    mbar_wait(full0 + 8 * s, (u / kStages) & 1);
+    fence_regs(sc);
+    fence_regs(dp);
+    tile_descs<2>(dq, sQ);
+    tile_descs<2>(dk, sK + s * kTile);
+    tile_descs<2>(dg, sG);
+    tile_descs<2>(dv, sV + s * kTile);
+    wgmma_fence();
+    issue_s(sc, dq, dk);
+    if (with_dp) issue_s(dp, dg, dv);
+    wgmma_wait();
+    fence_regs(sc);
+    fence_regs(dp);
+    native_scores(sc, x, (u % tiles) * 64, r, a, scale_b);
+  };
+  auto release = [&](int u) {
+    if (lane == 0) mbar_arrive(empty0 + 8 * (u % kStages));
+  };
+  auto quad_reduce = [&](float (&v)[2], bool is_max) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float o = __shfl_xor_sync(0xffffffffu, v[j], off);
+        v[j] = is_max ? fmaxf(v[j], o) : v[j] + o;
+      }
+    }
+  };
+
+  // sweep 1: the bf16 row max
+  for (int t = 0; t < tiles; ++t) {
+    products(t, false);
+    release(t);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], x[i]);
+  }
+  quad_reduce(m, true);
+  // sweep 2: the float32 normaliser of the bf16 exponentials
+  for (int t = 0; t < tiles; ++t) {
+    products(tiles + t, false);
+    release(tiles + t);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i >> 1) & 1;
+      z[j] += bf16r(expf(bf16r(x[i] - m[j])));
+    }
+  }
+  quad_reduce(z, false);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) rz[j] = bf16r(1.f / z[j]);
+  // sweep 3: Delta = Sum P dP, dP 0 where dropped, / keep where kept
+  for (int t = 0; t < tiles; ++t) {
+    const int u = 2 * tiles + t;
+    products(u, true);
+    release(u);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i >> 1) & 1;
+      delta[j] += native_prob(x[i], m[j], rz[j]) *
+                  kept_dp<kDrop>(dp[i], a, b, h, j ? r.row1 : r.row0,
+                                 t * 64 + 8 * (i / 4) + r.cq + (i & 1));
+    }
+  }
+  quad_reduce(delta, false);
+  // sweep 4: dS = P o (dP - Delta) as bf16 hi + lo, dQ += dS K
+  for (int t = 0; t < tiles; ++t) {
+    const int u = 3 * tiles + t, s = u % kStages;
+    products(u, true);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int j = (i >> 1) & 1;
+      const int row = j ? r.row1 : r.row0, key = t * 64 + 8 * (i / 4) + r.cq;
+      const float d0 = kept_dp<kDrop>(dp[i], a, b, h, row, key);
+      const float d1 = kept_dp<kDrop>(dp[i + 1], a, b, h, row, key + 1);
+      split(native_prob(x[i], m[j], rz[j]) * (d0 - delta[j]),
+            native_prob(x[i + 1], m[j], rz[j]) * (d1 - delta[j]), dhi[i / 2],
+            dlo[i / 2]);
+    }
+    fence_regs(acc);
+    fence_regs(dhi);
+    fence_regs(dlo);
+    uint64_t dkm[4];
+    tile_descs<128>(dkm, sK + s * kTile);
+    wgmma_fence();
+    issue_pv(acc, dhi, dlo, dkm);
+    wgmma_wait();
+    fence_regs(acc);
+    release(u);
+  }
+
+  // epilogue: dQ * scale in bf16; the rows' (max, bf16(1 / z), Delta)
+  __nv_bfloat16* out = a.dq + ((size_t)blockIdx.y * a.Lq) * a.D;
+  const bool pairs = (a.D % 2) == 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + r.cq;
+    if (col >= a.D) continue;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int row = k ? r.row1 : r.row0;
+      if (row >= a.Lq) continue;
+      const float x0 = acc[4 * j + 2 * k] * a.scale;
+      const float x1 = acc[4 * j + 2 * k + 1] * a.scale;
+      __nv_bfloat16* dst = out + (size_t)row * a.D + col;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        dst[0] = __float2bfloat16(x0);
+        if (col + 1 < a.D) dst[1] = __float2bfloat16(x1);
+      }
+    }
+  }
+  if (lane % 4 == 0) {
+    float* st = a.stats + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 192;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = (k ? r.row1 : r.row0) - q0;
+      st[i] = m[k];
+      st[64 + i] = rz[k];
+      st[128 + i] = delta[k];
+    }
+  }
+}
+
 // Kernel 2: dK and dV, one block per (64 keys, batch x head). A thread
 // holds keys key0 and key0 + 8 (the m64 fragment's rows) and, per q tile,
-// the rows q0 + 8 j + cq (+ 1) (its columns).
-template <bool kDrop>
+// the rows q0 + 8 j + cq (+ 1) (its columns). kNative takes P^T in the
+// input-dtype softmax from K8n's stats.
+template <bool kDrop, bool kNative>
 __global__ void __launch_bounds__(kThreads, 2)
     attention_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                   const __grid_constant__ CUtensorMap tk,
@@ -477,6 +697,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       a.kv_mask == nullptr ? nullptr : a.kv_mask + (size_t)b * a.Lkv;
   const bool kept0 = mask == nullptr || mask[min(key0, a.Lkv - 1)] != 0;
   const bool kept1 = mask == nullptr || mask[min(key1, a.Lkv - 1)] != 0;
+  const float scale_b = bf16r(a.scale), keep_b = bf16r(a.keep);
+  const float masked_b = bf16r(kMasked);
   uint64_t dk_[4], dv_[4], dq_[4], dg_[4];
   float st[32], dpt[32], dk[32], dv[32];
 #pragma unroll
@@ -518,16 +740,20 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int c2 = 0; c2 < 2; ++c2) {
         const int c = 8 * (i / 4) + cq + c2, row = q0 + c;
-        const float y = st[i + c2] * a.scale_log2;
-        const float x = whole ? y
-                              : (row < a.Lq ? masked(y, row, key, kept_key, a)
-                                            : -INFINITY);
-        const float p = ex2(x - sm[c]) * sm[64 + c];
+        const float y = kNative ? bf16r(bf16r(st[i + c2]) * scale_b)
+                                : st[i + c2] * a.scale_log2;
+        const float x =
+            whole ? y
+                  : (row < a.Lq ? masked(y, row, key, kept_key, a,
+                                         kNative ? masked_b : kMasked)
+                                : -INFINITY);
+        const float p = kNative ? native_prob(x, sm[c], sm[64 + c])
+                                : ex2(x - sm[c]) * sm[64 + c];
         float d = dpt[i + c2];
         pu[c2] = p;
         if (kDrop) {
           const bool drop = dropped(a, b, h, row, key);
-          pu[c2] = drop ? 0.f : p * a.inv_keep;
+          pu[c2] = drop ? 0.f : kNative ? bf16r(p / keep_b) : p * a.inv_keep;
           d = drop ? 0.f : d * a.inv_keep;
         }
         ds[c2] = p * (d - sm[128 + c]);
@@ -597,7 +823,7 @@ int launch_one(Kernel kernel, int smem, dim3 grid, const CUtensorMap& tq,
   return (int)cudaGetLastError();
 }
 
-template <bool kDrop>
+template <bool kDrop, bool kNative>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const CUtensorMap& tg, const BwdArgs& ka,
            int B, cudaStream_t stream) {
@@ -605,11 +831,13 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
   const int dq_smem = (2 + 2 * kStages) * kTile + bars + 1024;
   const int dkv_smem =
       (2 + 2 * kStages) * kTile + kStages * kStatBytes + bars + 1024;
-  const int err = launch_one(attention_bwd_dq_sm90_kernel<kDrop>, dq_smem,
-                             dim3((ka.Lq + 63) / 64, B * ka.H), tq, tk, tv,
-                             tg, ka, stream);
+  const int err = launch_one(kNative
+                                 ? attention_bwd_dq_native_sm90_kernel<kDrop>
+                                 : attention_bwd_dq_sm90_kernel<kDrop>,
+                             dq_smem, dim3((ka.Lq + 63) / 64, B * ka.H), tq,
+                             tk, tv, tg, ka, stream);
   if (err != 0) return err;
-  return launch_one(attention_bwd_dkv_sm90_kernel<kDrop>, dkv_smem,
+  return launch_one(attention_bwd_dkv_sm90_kernel<kDrop, kNative>, dkv_smem,
                     dim3((ka.Lkv + 63) / 64, B * ka.H), tq, tk, tv, tg, ka,
                     stream);
 }
@@ -638,7 +866,8 @@ int attention_bwd_sm90(const Sm90AttentionBwd& a, cudaStream_t stream) {
              0,
              0,
              0,
-             0};
+             0,
+             a.dropout ? a.keep : 1.f};
   if (!make_map(&tq, &ka.q_head_inner, a.q, a.D, a.Lq, a.H, a.B, a.qb, a.qh,
                 a.ql) ||
       !make_map(&tk, &ka.k_head_inner, a.k, a.D, a.Lkv, a.H, a.B, a.kb, a.kh,
@@ -648,8 +877,11 @@ int attention_bwd_sm90(const Sm90AttentionBwd& a, cudaStream_t stream) {
       !make_map(&tg, &ka.g_head_inner, a.g, a.D, a.Lq, a.H, a.B, a.gb, a.gh,
                 a.gl))
     return (int)cudaErrorInvalidValue;
-  return a.dropout ? launch<true>(tq, tk, tv, tg, ka, a.B, stream)
-                   : launch<false>(tq, tk, tv, tg, ka, a.B, stream);
+  if (a.native)
+    return a.dropout ? launch<true, true>(tq, tk, tv, tg, ka, a.B, stream)
+                     : launch<false, true>(tq, tk, tv, tg, ka, a.B, stream);
+  return a.dropout ? launch<true, false>(tq, tk, tv, tg, ka, a.B, stream)
+                   : launch<false, false>(tq, tk, tv, tg, ka, a.B, stream);
 }
 
 }  // namespace rtvc

@@ -49,6 +49,21 @@
 // - Online softmax in the log2 domain (ex2.approx), row max and sum kept per
 //   thread for its two rows, reduced across the four lanes of a row. The
 //   mask is applied by selects, never by a branch per score.
+//
+// K4n: the same function in the TPU kernel's input-dtype softmax
+// (_block_probs with softmax_native, bf16 inputs): the float32 score rounded
+// to bf16 and multiplied by bf16(scale) in bf16; masked scores bf16(-1e30);
+// the row max and e = exp(s - max) in bf16; z = Sum float32(e); p =
+// bf16(e * bf16(1 / z)); a kept p becomes bf16(p / bf16(1 - rate)) (0.8984375
+// at rate 0.1); the output Sum p v in float32, rounded to bf16. Every e is
+// rounded at the row's FINAL max, which an online softmax cannot rescale to,
+// so attention_native_sm90_kernel takes three sweeps over the keys: S for
+// the row max, S again for z, S again for P and O += P V (one bf16 term of
+// P, exact, where K4 needs two). The bound is the function's own work, one
+// Q K^T and one P V, as K4's; the two extra score sweeps cost 2/3 of K4's
+// products again and keep no exponential of theirs. expf (not ex2.approx)
+// takes each exponential, so that its bf16 rounding matches the plain
+// version's but where the float32 results straddle a bf16 boundary.
 
 #include "common.cuh"
 #include "flash_attention_sm90.cuh"
@@ -75,6 +90,7 @@ struct KernelArgs {
   uint32_t seed, thresh;
   float inv_keep;    // 1 / (1 - rate), or 1
   int q_head_inner, k_head_inner, v_head_inner;  // tensor-map dim order
+  float scale, keep;  // as given: K4n rounds both to bf16
 };
 
 // the score x of (row, key) in the log2 domain, as _block_probs masks it;
@@ -325,12 +341,191 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
+// K4n: one consumer warpgroup (64 query rows) + one producer warp, three
+// sweeps over the keys (see the note at the top). The producer streams K
+// alone for the first two sweeps and K with V for the third through the
+// one ring. Two blocks an SM: the scores in the input dtype sit beside
+// the raw ones, which three blocks' register share would spill.
 template <bool kDrop>
+__global__ void __launch_bounds__(kThreads, 2)
+    attention_native_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const KernelArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + kTile;
+  const uint32_t sV = sK + kStages * kTile;
+  const uint32_t q_full = sV + kStages * kTile;
+  const uint32_t full0 = q_full + 8;
+  const uint32_t empty0 = full0 + 8 * kStages;
+
+  const int b = blockIdx.y / a.H;
+  const int h = blockIdx.y - b * a.H;
+  const int q0 = blockIdx.x * kRows;
+  const int tiles = (a.Lkv + kKeys - 1) / kKeys;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // ---- producer: Q once, K for sweeps 1 and 2, K and V for sweep 3 ----
+    if (lane == 0) {
+      mbar_expect_tx(q_full, kTile);
+      tma_rows(sQ, &tq, q_full, a.q_head_inner, q0, h, b);
+      for (int u = 0; u < 3 * tiles; ++u) {
+        const int s = u % kStages, t = u % tiles;
+        const bool with_v = u >= 2 * tiles;
+        mbar_wait(empty0 + 8 * s, ((u / kStages) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, with_v ? 2 * kTile : kTile);
+        tma_rows(sK + s * kTile, &tk, full0 + 8 * s, a.k_head_inner,
+                 t * kKeys, h, b);
+        if (with_v)
+          tma_rows(sV + s * kTile, &tv, full0 + 8 * s, a.v_head_inner,
+                   t * kKeys, h, b);
+      }
+    }
+    return;
+  }
+  // ---- consumer warpgroup: rows q0 + [0, 64) ----
+  Rows r;
+  r.row_min = q0;
+  r.row0 = q0 + 16 * warp + lane / 4;
+  r.row1 = r.row0 + 8;
+  r.cq = 2 * (lane % 4);
+  r.b = b;
+  r.h = h;
+  r.mask = a.kv_mask == nullptr ? nullptr : a.kv_mask + (size_t)b * a.Lkv;
+  const float scale_b = bf16r(a.scale), keep_b = bf16r(a.keep);
+  uint64_t dq[4], dk[4], dv[4];
+  float o[32], sc[32], x[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f}, rz[2];
+  uint32_t p[16];
+  mbar_wait(q_full, 0);
+
+  // S of ring slot u (key tile u % tiles), waited; the slot stays full
+  auto scores_of = [&](int u) {
+    const int s = u % kStages;
+    mbar_wait(full0 + 8 * s, (u / kStages) & 1);
+    fence_regs(sc);
+    tile_descs<2>(dq, sQ);
+    tile_descs<2>(dk, sK + s * kTile);
+    wgmma_fence();
+    issue_s(sc, dq, dk);
+    wgmma_wait();
+    fence_regs(sc);
+    native_scores(sc, x, (u % tiles) * kKeys, r, a, scale_b);
+  };
+
+  // sweep 1: the bf16 row max (exact in any order)
+  for (int t = 0; t < tiles; ++t) {
+    scores_of(t);
+    if (lane == 0) mbar_arrive(empty0 + 8 * (t % kStages));
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], x[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1)
+      m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], off));
+  }
+
+  // sweep 2: z = Sum float32(e), e = bf16(exp(bf16(s - max)))
+  for (int t = 0; t < tiles; ++t) {
+    const int u = tiles + t;
+    scores_of(u);
+    if (lane == 0) mbar_arrive(empty0 + 8 * (u % kStages));
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i >> 1) & 1;
+      z[j] += bf16r(expf(bf16r(x[i] - m[j])));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1)
+      z[j] += __shfl_xor_sync(0xffffffffu, z[j], off);
+    rz[j] = bf16r(1.f / z[j]);
+  }
+
+  // sweep 3: p = bf16(e * bf16(1 / z)), dropped or divided by bf16(keep),
+  // then O += P V; the slot is released after the product
+  for (int t = 0; t < tiles; ++t) {
+    const int u = 2 * tiles + t, s = u % kStages;
+    scores_of(u);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int j = (i >> 1) & 1;
+      float pp[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        pp[c] = native_prob(x[i + c], m[j], rz[j]);
+        if (kDrop) {
+          const int row = j ? r.row1 : r.row0;
+          const int key = t * kKeys + 8 * (i / 4) + r.cq + c;
+          pp[c] = dropout_bits(a.seed, b, h, row, key) < a.thresh
+                      ? 0.f
+                      : bf16r(pp[c] / keep_b);
+        }
+      }
+      p[i / 2] = pack_bf16(pp[0], pp[1]);
+    }
+    fence_regs(o);
+    fence_regs(p);
+    tile_descs<128>(dv, sV + s * kTile);
+    wgmma_fence();
+    issue_pv1(o, p, dv);
+    wgmma_wait();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+  // epilogue: O rounded to bf16 (P is normalised already)
+  __nv_bfloat16* op = a.out + b * a.ob + h * a.oh;
+  const bool pairs = (a.D % 2) == 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + r.cq;
+    if (col >= a.D) continue;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int row = k ? r.row1 : r.row0;
+      if (row >= a.Lq) continue;
+      const float x0 = o[4 * j + 2 * k], x1 = o[4 * j + 2 * k + 1];
+      __nv_bfloat16* dst = op + row * a.ol + col;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        dst[0] = __float2bfloat16(x0);
+        if (col + 1 < a.D) dst[1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+template <bool kDrop, bool kNative>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const KernelArgs& ka, int B,
            cudaStream_t stream) {
   const int smem = (1 + 2 * kStages) * kTile + 8 * (1 + 2 * kStages) + 1024;
-  auto kernel = attention_sm90_kernel<kDrop>;
+  auto kernel = kNative ? attention_native_sm90_kernel<kDrop>
+                        : attention_sm90_kernel<kDrop>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -347,7 +542,7 @@ int attention_sm90(const Sm90Attention& a, cudaStream_t stream) {
   KernelArgs ka{static_cast<__nv_bfloat16*>(a.out), a.kv_mask, a.H, a.Lq,
                 a.Lkv, a.D, a.ob, a.oh, a.ol, a.scale * kLog2e, a.causal,
                 a.prefix_len, a.seed, a.thresh,
-                a.dropout ? 1.f / a.keep : 1.f, 0, 0, 0};
+                a.dropout ? 1.f / a.keep : 1.f, 0, 0, 0, a.scale, a.keep};
   if (!make_map(&tq, &ka.q_head_inner, a.q, a.D, a.Lq, a.H, a.B, a.qb, a.qh,
                 a.ql) ||
       !make_map(&tk, &ka.k_head_inner, a.k, a.D, a.Lkv, a.H, a.B, a.kb, a.kh,
@@ -355,8 +550,11 @@ int attention_sm90(const Sm90Attention& a, cudaStream_t stream) {
       !make_map(&tv, &ka.v_head_inner, a.v, a.D, a.Lkv, a.H, a.B, a.vb, a.vh,
                 a.vl))
     return (int)cudaErrorInvalidValue;
-  return a.dropout ? launch<true>(tq, tk, tv, ka, a.B, stream)
-                   : launch<false>(tq, tk, tv, ka, a.B, stream);
+  if (a.native)
+    return a.dropout ? launch<true, true>(tq, tk, tv, ka, a.B, stream)
+                     : launch<false, true>(tq, tk, tv, ka, a.B, stream);
+  return a.dropout ? launch<true, false>(tq, tk, tv, ka, a.B, stream)
+                   : launch<false, false>(tq, tk, tv, ka, a.B, stream);
 }
 
 }  // namespace rtvc

@@ -1,5 +1,6 @@
 // K4/K5 forward (flash_attention_sm90.cu) and K8 (flash_attention_bwd_sm90.cu)
-// for bfloat16 on Hopper tensor cores: flash_attention.cu's entry points
+// for bfloat16 on Hopper tensor cores, with K4n and K8n, their input-dtype
+// softmax variants: flash_attention.cu's entry points
 // hand every bfloat16 call there; float32 calls keep its CUDA-core kernels.
 // Below the entry points, the Hopper helpers both sources use: mbarriers,
 // TMA loads through 4-d tensor maps (64 rows x 64 columns, 128-byte
@@ -13,6 +14,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "common.cuh"  // round_to
 
 namespace rtvc {
 
@@ -30,6 +33,7 @@ struct Sm90Attention {
   uint32_t seed, thresh;
   float keep;  // 1 - rate
   int dropout;
+  int native;  // the input-dtype (bf16) softmax: K4n
 };
 
 // Launches the kernel on `stream`; returns a cudaError_t code (0 = launched).
@@ -56,6 +60,7 @@ struct Sm90AttentionBwd {
   uint32_t seed, thresh;
   float keep;
   int dropout;
+  int native;  // the input-dtype (bf16) softmax: K8n
 };
 
 int attention_bwd_sm90(const Sm90AttentionBwd& a, cudaStream_t stream);
@@ -215,6 +220,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// x rounded to bfloat16 (nearest even) and widened back
+__device__ __forceinline__ float bf16r(float x) {
+  return round_to<__nv_bfloat16>(x);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -249,6 +259,61 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
              plo[4 * kk + 3], dv[kk]);
   }
   wgmma_commit();
+}
+
+// O += P V for one 64-key tile with P already bfloat16 (the input-dtype
+// softmax's probabilities): 4 wgmma m64n64k16, committed as one group
+__device__ __forceinline__ void issue_pv1(float (&o)[32],
+                                          const uint32_t (&p)[16],
+                                          const uint64_t (&dv)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+             dv[kk]);
+  wgmma_commit();
+}
+
+// The input-dtype softmax's scores of one 64-key S tile (keys k0 + [0,
+// 64)) for the thread of the m64 fragment that `r` places (rows r.row0 and
+// r.row1, first columns r.cq of its 8-column groups, the warpgroup's first
+// row r.row_min, the batch row's key mask r.mask or null), as _block_probs
+// takes them with softmax_native: bf16(bf16(s) * scale_b), scale_b the
+// bf16 scale; bf16(-1e30) where the key is disallowed; -inf past Lkv.
+template <class Rows, class Args>
+__device__ __forceinline__ void native_scores(const float (&sc)[32],
+                                              float (&x)[32], int k0,
+                                              const Rows& r, const Args& a,
+                                              float scale_b) {
+  const bool whole = r.mask == nullptr && k0 + 64 <= a.Lkv &&
+                     (!a.causal || k0 + 64 <= a.prefix_len ||
+                      k0 + 63 <= r.row_min);
+  const float masked_b = bf16r(-1e30f);
+  bool kept[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int key = k0 + 8 * (j / 2) + r.cq + (j & 1);
+    kept[j] = r.mask == nullptr || r.mask[min(key, a.Lkv - 1)] != 0;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float y = bf16r(bf16r(sc[i]) * scale_b);
+    if (whole) {
+      x[i] = y;
+    } else {
+      const int row = (i & 2) ? r.row1 : r.row0;
+      const int key = k0 + 8 * (i / 4) + r.cq + (i & 1);
+      const bool ok = kept[2 * (i / 4) + (i & 1)] &&
+                      (!a.causal || key < a.prefix_len || key <= row);
+      x[i] = key < a.Lkv ? (ok ? y : masked_b) : -INFINITY;
+    }
+  }
+}
+
+// The input-dtype softmax's probability of a score x (from native_scores)
+// in a row of max m and bf16 reciprocal normaliser rz: bf16(bf16(exp(
+// bf16(x - m))) * rz)
+__device__ __forceinline__ float native_prob(float x, float m, float rz) {
+  return bf16r(bf16r(expf(bf16r(x - m))) * rz);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so the library needs

@@ -300,11 +300,12 @@ class CacheReplayFeed:
     read on a producer thread one or more batches ahead.
 
     On a hit the entries go into page-locked host tensors and are copied to
-    ``device`` without blocking on a side CUDA stream; the batch carries an
-    event recorded after those copies, and the consumer's stream waits on
-    it before the batch is handed out, so the step never reads a half-copied
-    tensor while the copies overlap the running step. On the CPU the entries
-    are handed out as they are.
+    ``device`` (the card unless the caller asks for ``"cpu"``) without
+    blocking on a side CUDA stream; the batch carries an event recorded
+    after those copies, and the consumer's stream waits on it before the
+    batch is handed out, so the step never reads a half-copied tensor while
+    the copies overlap the running step. On the CPU the entries are handed
+    out as they are.
 
     Each batch dict gains:
 
@@ -321,7 +322,7 @@ class CacheReplayFeed:
     def __init__(self, loader, cache: Optional[TeacherLogitsCache] = None,
                  depth: int = 2,
                  beam_cache: Optional[TeacherBeamCache] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.loader = loader
         self.cache = cache
         self.beam_cache = beam_cache

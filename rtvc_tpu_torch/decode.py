@@ -22,16 +22,20 @@ logits of each beam's row, a ``k·k`` candidate table in beam-major order,
 ties lowest index first as ``jax.lax.top_k`` breaks them.
 
 ``teacher_beam`` is GIT's beam search as the reference modified it
-(model.py:465-678), without sampling: beam 4, 15 steps, length penalty
-0.6 applied when a hypothesis is added, a BeamHypotheses pool keeping the
-best hypothesis with the old-HF ``is_done`` rule, EOS candidates added as
-hypotheses only while the next beam set is unfilled, forced adds at the
-last step, pad = EOS, and every step's raw logits kept for distillation.
+(model.py:465-678): beam 4, 15 steps, length penalty 0.6 applied when a
+hypothesis is added, a BeamHypotheses pool keeping the best hypothesis with
+the old-HF ``is_done`` rule, EOS candidates added as hypotheses only while
+the next beam set is unfilled, forced adds at the last step, pad = EOS, and
+every step's raw logits kept for distillation. With ``do_sample`` each beam
+samples its candidates (temperature, :func:`top_k_top_p_filtering`, then a
+Gumbel top-k whose noise :func:`gumbel_noise` draws from an explicit CPU
+generator). ``teacher_generate`` wraps it as the reference's teacher
+forward: per-sample captions and beam-consensus logit rows.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,6 +82,9 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return values[..., :k], indices[..., :k]
 
 
+_stable_top_k = top_k  # teacher_beam's ``top_k`` argument shadows it
+
+
 def beam_select(raw: torch.Tensor, scores: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One step of :func:`student_beam`'s selection: raw float32 logits
@@ -119,7 +126,8 @@ def student_beam(model: StudentCandidateV1, frames: torch.Tensor,
 
     seqs = torch.zeros((b, k, max_len), dtype=torch.int32, device=dev)
     seqs[:, :, 0] = model.cls_token_id
-    seqs[:, :, 1] = top_idx.to(torch.int32)
+    if max_len > 1:  # JAX drops the write past the end: rows of CLS alone
+        seqs[:, :, 1] = top_idx.to(torch.int32)
     # one cache row per beam, B-major: row b·k + beam
     caches = _gather_cache(
         caches, torch.arange(b, device=dev).repeat_interleave(k))
@@ -144,19 +152,78 @@ class TeacherBeamOutput(NamedTuple):
     num_steps: int             # decode iterations run
 
 
+def top_k_top_p_filtering(logits: torch.Tensor, top_k: int = 0,
+                          top_p: float = 0.0,
+                          min_tokens_to_keep: int = 2) -> torch.Tensor:
+    """HF-style top-k / nucleus filtering of the last axis, as JAX's
+    ``top_k_top_p_filtering`` computes it: logits below the k-th largest
+    (k at least ``min_tokens_to_keep``) become -inf; then, over the
+    descending sort, a logit is removed once the softmax's running sum
+    before it exceeds ``top_p`` (the first ``min_tokens_to_keep`` stay), and
+    every logit below the smallest kept one becomes -inf. Kept logits pass
+    through unchanged."""
+    filtered = logits
+    if top_k and top_k > 0:
+        k = min(max(top_k, min_tokens_to_keep), logits.shape[-1])
+        kth = torch.sort(filtered, dim=-1).values[..., -k, None]
+        filtered = torch.where(filtered < kth, -torch.inf, filtered)
+    if top_p and top_p > 0.0:
+        sorted_logits = torch.sort(filtered, dim=-1,
+                                   descending=True).values
+        cum_probs = torch.cumsum(torch.softmax(sorted_logits, dim=-1),
+                                 dim=-1)
+        remove = torch.zeros_like(cum_probs, dtype=torch.bool)
+        remove[..., 1:] = cum_probs[..., :-1] > top_p
+        remove[..., :min_tokens_to_keep] = False
+        kept_min = torch.where(remove, torch.inf, sorted_logits).amin(
+            dim=-1, keepdim=True)
+        filtered = torch.where(filtered < kept_min, -torch.inf, filtered)
+    return filtered
+
+
+def gumbel_noise(generator: torch.Generator, shape, step: int
+                 ) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))`` of ``shape``, float32, from
+    the CPU ``generator`` (u uniform in [tiny, 1), as ``jax.random.gumbel``
+    draws it), for the sampled beam's decode step ``step`` (JAX folds it
+    into its key; the generator's stream already moves on). On the CPU, so
+    that a card and a CPU run draw the same noise."""
+    u = torch.rand(shape, generator=generator).clamp_min_(
+        torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
 @torch.inference_mode()
 def teacher_beam(model: GITTeacher, frames: torch.Tensor, *,
                  beam_size: int = 4, max_steps: int = 15,
                  per_node_beam_size: int = 2, length_penalty: float = 0.6,
-                 repetition_penalty: float = 1.0) -> TeacherBeamOutput:
-    """GIT beam search (``do_sample=False``) over ``frames [B, F, H, W, 3]``.
-    Candidates come from a hierarchical top-k: the top m = beams ×
-    per-node candidates of each beam's raw (penalised) logits, normalised
-    by the row's logsumexp plus the beam score, then the top m of the pooled
-    rows, ties in beam-major order, as JAX selects them."""
+                 repetition_penalty: float = 1.0, do_sample: bool = False,
+                 top_k: int = 0, top_p: float = 0.0,
+                 temperature: float = 1.0,
+                 generator: Optional[torch.Generator] = None
+                 ) -> TeacherBeamOutput:
+    """GIT beam search over ``frames [B, F, H, W, 3]``. Without
+    ``do_sample``, candidates come from a hierarchical top-k: the top m =
+    beams × per-node candidates of each beam's raw (penalised) logits,
+    normalised by the row's logsumexp plus the beam score, then the top m
+    of the pooled rows, ties in beam-major order, as JAX selects them.
+
+    With ``do_sample`` (the reference's sampled beam, model.py:532-554):
+    the logits divided by ``temperature``, filtered by
+    :func:`top_k_top_p_filtering`, perturbed by :func:`gumbel_noise` from
+    the CPU ``generator`` (seeded 0 when None, as JAX's default key), and
+    each beam's top ``per_node_beam_size`` kept, ties lowest word first;
+    a candidate scores its filtered log-probability plus its beam's score
+    and keeps its true source beam, in beam-major order (not sorted by
+    score, as in JAX). ``max_steps`` must be at least 2."""
+    if max_steps < 2:
+        raise ValueError(f"teacher_beam: max_steps must be at least 2 (SOS "
+                         f"and one decoded token), got {max_steps}")
     nb, m = beam_size, per_node_beam_size * beam_size
     sos, eos = 101, 102  # BERT CLS / SEP; EOS doubles as the pad id
     vocab = model.config.vocab_size
+    if do_sample and generator is None:
+        generator = torch.Generator().manual_seed(0)
 
     visual = model.encode_only(frames)
     b, prefix = visual.shape[:2]
@@ -192,12 +259,27 @@ def teacher_beam(model: GITTeacher, frames: torch.Tensor, *,
                                     raw / repetition_penalty)
             scores_tok = torch.where(present, penalized, raw)
 
-        top_raw, top_word = torch.topk(scores_tok, m, dim=-1)
-        lse = torch.logsumexp(scores_tok, dim=-1, keepdim=True)
-        pooled = (top_raw - lse + beam_scores[:, None]).reshape(b, nb * m)
-        next_scores, pick = torch.topk(pooled, m, dim=1)    # [B, m]
-        word_id = torch.gather(top_word.reshape(b, nb * m), 1, pick)
-        beam_id = pick // m
+        if do_sample:
+            s = (scores_tok / temperature if temperature != 1.0
+                 else scores_tok)
+            s = top_k_top_p_filtering(s, top_k=top_k, top_p=top_p)
+            noise = gumbel_noise(generator, tuple(s.shape), cur_len)
+            perturbed = torch.where(torch.isfinite(s), s + noise.to(dev),
+                                    -torch.inf)
+            _, samp = _stable_top_k(perturbed, per_node_beam_size)
+            samp_logp = torch.gather(torch.log_softmax(s, dim=-1), 1, samp)
+            next_scores = (samp_logp + beam_scores[:, None]).reshape(
+                b, nb * per_node_beam_size)
+            word_id = samp.reshape(b, nb * per_node_beam_size)
+            beam_id = torch.arange(nb, device=dev).repeat_interleave(
+                per_node_beam_size)[None, :].expand(b, -1)
+        else:
+            top_raw, top_word = torch.topk(scores_tok, m, dim=-1)
+            lse = torch.logsumexp(scores_tok, dim=-1, keepdim=True)
+            pooled = (top_raw - lse + beam_scores[:, None]).reshape(b, nb * m)
+            next_scores, pick = torch.topk(pooled, m, dim=1)    # [B, m]
+            word_id = torch.gather(top_word.reshape(b, nb * m), 1, pick)
+            beam_id = pick // m
         is_eos = word_id == eos
 
         # the pool's done test comes before this step's candidates
@@ -271,3 +353,26 @@ def teacher_kd_targets(out: TeacherBeamOutput,
     n = torch.clamp(captions_text_len.to(words.device), max=steps)
     valid = torch.arange(steps, device=words.device)[None, :] < n[:, None]
     return teacher, valid
+
+
+def teacher_generate(model: GITTeacher, frames: torch.Tensor, tokenizer, *,
+                     beam_size: int = 4, max_steps: int = 15,
+                     length_penalty: float = 0.6) -> List[Dict[str, Any]]:
+    """The reference teacher's forward (``GenerativeImageTextTeacher``,
+    model.py:762-793) as JAX's ``teacher_generate``: :func:`teacher_beam`
+    over the batch, then per sample a dict of ``predictions`` (the int32
+    row, numpy), ``cap`` (``tokenizer.decode`` of it without special
+    tokens), ``output`` (the beam-consensus logits of its first
+    ``n = min(words in cap, decode steps)`` words, ``[1, n, V]`` on the
+    model's device) and ``logprobs`` (the best hypothesis's score)."""
+    out = teacher_beam(model, frames, beam_size=beam_size,
+                       max_steps=max_steps, length_penalty=length_penalty)
+    preds = out.predictions.cpu().numpy()
+    caps = [tokenizer.decode(p, skip_special_tokens=True) for p in preds]
+    n_words = torch.tensor([min(len(c.split(" ")), out.num_steps)
+                            for c in caps], dtype=torch.int32)
+    teacher_logits, _ = teacher_kd_targets(out, n_words)
+    return [{"predictions": preds[i], "cap": cap,
+             "output": teacher_logits[i, :int(n_words[i])][None],
+             "logprobs": float(out.logprobs[i])}
+            for i, cap in enumerate(caps)]

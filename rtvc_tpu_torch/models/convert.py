@@ -15,6 +15,15 @@ kernels become OIHW; LayerNorm/BatchNorm ``scale`` becomes ``weight``; BN
 ``in_proj_kernel`` becomes ``in_proj_weight``. No jax import: leaves are
 read with ``numpy.asarray``.
 
+:func:`clip_params_from_hf` and :func:`git_teacher_params_from_hf` are the
+transformers bridge, under JAX's names: a ``CLIPVisionModel`` or
+``GitForCausalLM`` state dict remapped onto the keys that
+:class:`~rtvc_tpu_torch.models.clip_vit.CLIPViT` and
+:class:`~rtvc_tpu_torch.models.git_teacher.GITTeacher` load (both keep
+torch's layouts, so no tensor is transposed), each with the list of source
+keys left unused; :func:`git_config_from_hf` reads the matching
+``GITConfig`` fields off a transformers ``GitConfig``.
+
 :func:`student_jax_path`, :func:`to_jax_layout` and
 :func:`from_jax_layout` go the other way for one student entry: its key
 path in the JAX tree and its values in the JAX layout, for code that must
@@ -188,3 +197,134 @@ def teacher_state_dict_from_jax(params: Mapping[str, Any]
             put(f"{base}.{dst}", layer[src])
         i += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# transformers (GitForCausalLM / CLIPVisionModel state dicts)
+# ---------------------------------------------------------------------------
+
+StateDict = Mapping[str, torch.Tensor]
+
+
+def _layer_indices(sd: StateDict, pattern: str) -> int:
+    """Count consecutive layer indices for keys like pattern.format(i)."""
+    n = 0
+    while pattern.format(n) in sd:
+        n += 1
+    return n
+
+
+def _copy(sd: StateDict, out: Dict[str, torch.Tensor], used: set,
+          src: str, dst: str, leaves=("weight", "bias")) -> None:
+    for leaf in leaves:
+        out[f"{dst}.{leaf}"] = sd[f"{src}.{leaf}"]
+        used.add(f"{src}.{leaf}")
+
+
+def clip_params_from_hf(sd: StateDict, prefix: str
+                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """A transformers CLIP vision tower (keys ``<prefix>embeddings...``) →
+    (the :class:`CLIPViT` state dict, the source keys under ``prefix`` left
+    unused). Each block's q, k and v projections are packed into the
+    ``in_proj`` weight and bias in that order."""
+    used: set = set()
+    p = prefix
+    out: Dict[str, torch.Tensor] = {
+        "class_embedding": sd[p + "embeddings.class_embedding"],
+        "positional_embedding": sd[p + "embeddings.position_embedding.weight"],
+    }
+    _copy(sd, out, used, p + "embeddings.patch_embedding", "conv1",
+          ("weight",))
+    _copy(sd, out, used, p + "pre_layrnorm", "ln_pre")  # HF's spelling
+    _copy(sd, out, used, p + "post_layernorm", "ln_post")
+    used.update({p + "embeddings.class_embedding",
+                 p + "embeddings.position_embedding.weight",
+                 p + "embeddings.position_ids"})  # buffer in older dumps
+    for i in range(_layer_indices(
+            sd, p + "encoder.layers.{}.layer_norm1.weight")):
+        src, dst = f"{p}encoder.layers.{i}", f"transformer.resblocks.{i}"
+        for leaf in ("weight", "bias"):
+            names = [f"{src}.self_attn.{x}_proj.{leaf}" for x in "qkv"]
+            out[f"{dst}.attn.in_proj_{leaf}"] = torch.cat(
+                [sd[n] for n in names])
+            used.update(names)
+        for s, d in (("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"),
+                     ("self_attn.out_proj", "attn.out_proj"),
+                     ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj")):
+            _copy(sd, out, used, f"{src}.{s}", f"{dst}.{d}")
+    unused = [k for k in sd if k.startswith(p) and k not in used]
+    return out, unused
+
+
+def git_teacher_params_from_hf(sd: StateDict
+                               ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """transformers ``GitForCausalLM.state_dict()`` → (the
+    :class:`GITTeacher` state dict, the keys left unused). Layer and frame
+    counts are read off the keys; both spellings of the temporal embedding
+    are read, and the output weight is taken from the tied word embedding
+    where the dump carries no ``output.weight``."""
+    used: set = set()
+    clip, clip_unused = clip_params_from_hf(
+        sd, prefix="git.image_encoder.vision_model.")
+    out = {f"image_encoder.{k}": v for k, v in clip.items()}
+    # HF used GIT's original `img_temperal_embedding` through 4.56, then
+    # fixed the typo
+    for spelled in ("git.img_temporal_embedding.{}",
+                    "git.img_temperal_embedding.{}"):
+        num_frames = _layer_indices(sd, spelled)
+        if num_frames:
+            break
+    for i in range(num_frames):
+        key = spelled.format(i)
+        out[f"img_temperal_embedding.{i}"] = sd[key].reshape(1, 1, -1)
+        used.add(key)
+    t = "textual"
+    for src, dst in (("git.visual_projection.visual_projection.0",
+                      "visual_projection.0"),
+                     ("git.visual_projection.visual_projection.1",
+                      "visual_projection.1"),
+                     ("git.embeddings.LayerNorm", "embedding.layer_norm")):
+        _copy(sd, out, used, src, f"{t}.{dst}")
+    for src, dst in (("word_embeddings", "words"),
+                     ("position_embeddings", "positions")):
+        _copy(sd, out, used, f"git.embeddings.{src}",
+              f"{t}.embedding.{dst}", ("weight",))
+    used.add("git.embeddings.position_ids")
+    out[f"{t}.output.weight"] = sd.get(
+        "output.weight", sd["git.embeddings.word_embeddings.weight"])
+    out[f"{t}.output.bias"] = sd["output.bias"]
+    used.update({"output.weight", "output.bias"})
+    for i in range(_layer_indices(
+            sd, "git.encoder.layer.{}.attention.self.query.weight")):
+        for part in ("attention.self.query", "attention.self.key",
+                     "attention.self.value", "attention.output.dense",
+                     "attention.output.LayerNorm", "intermediate.dense",
+                     "output.dense", "output.LayerNorm"):
+            _copy(sd, out, used, f"git.encoder.layer.{i}.{part}",
+                  f"{t}.transformer.encoder.layer.{i}.{part}")
+    unused = clip_unused + [k for k in sd if not k.startswith(
+        "git.image_encoder.") and k not in used]
+    return out, unused
+
+
+def git_config_from_hf(cfg) -> Dict[str, Any]:
+    """transformers ``GitConfig`` (or its dict) → ``GITConfig`` keyword
+    arguments, with the CLIP tower's under ``clip_kwargs`` (JAX's
+    ``git_config_from_hf``)."""
+    if hasattr(cfg, "to_dict"):
+        cfg = cfg.to_dict()
+    vis = cfg["vision_config"]
+    return dict(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        num_layers=cfg["num_hidden_layers"],
+        attention_heads=cfg["num_attention_heads"],
+        feedforward_size=cfg["intermediate_size"],
+        visual_feature_size=vis["hidden_size"],
+        max_caption_length=cfg["max_position_embeddings"],
+        num_image_with_embedding=cfg["num_image_with_embedding"] or 1,
+        clip_kwargs=dict(
+            image_size=vis["image_size"], patch_size=vis["patch_size"],
+            width=vis["hidden_size"], layers=vis["num_hidden_layers"],
+            heads=vis["num_attention_heads"]),
+    )

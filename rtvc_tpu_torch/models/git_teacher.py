@@ -271,6 +271,14 @@ def get_git_model(param: Dict[str, Any], dtype: torch.dtype = torch.float32,
         clip=clip, dtype=dtype, quantized=quantized))
 
 
+def load_teacher_param_yaml(path: str) -> Dict[str, Any]:
+    """The teacher's parameter.yaml (reference ``load_from_yaml_file``,
+    model.py:734). PyYAML is imported here, on first use."""
+    import yaml
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
 def quantize_teacher_variables(model: GITTeacher) -> GITTeacher:
     """A float teacher → its W8A8 form, in place (JAX's
     ``quantize_teacher_variables`` on the module instead of a param

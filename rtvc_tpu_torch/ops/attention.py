@@ -1,4 +1,5 @@
-"""Multi-head attention: the plain path and kernels K1, K4, K5 and K8.
+"""Multi-head attention: the plain path and kernels K1, K4, K5 and K8
+(K4n and K8n in the input-dtype softmax).
 
 Counterpart of ``rtvc_tpu/ops/attention.py``:
 
@@ -21,7 +22,11 @@ Counterpart of ``rtvc_tpu/ops/attention.py``:
   beside them: the GIT teacher's joint prefix-causal attention, with the
   TPU kernel's in-kernel dropout (:func:`dropout_bits`, a counter hash of
   the global (seed, batch, head, row, column), so that the backward
-  regenerates the forward's mask bit for bit);
+  regenerates the forward's mask bit for bit), and its input-dtype softmax
+  (``softmax_native``: bfloat16 scores, max and exponentials, a float32
+  normaliser; the module switch ``SOFTMAX_NATIVE_PALLAS``, set by
+  :func:`set_softmax_native_pallas`, picks it where the caller leaves it
+  open), which bfloat16 inputs run on their own kernels, K4n and K8n;
 - :func:`blhd_attention` is ``blhd_attention`` as K5 (the same sources,
   its own entry point), with :func:`blhd_attention_plain`: the CLIP tower's
   attention read in place from the QKV GEMM's ``[B, L, H, D]`` view;
@@ -285,21 +290,38 @@ def _allowed(lq: int, lkv: int, causal: bool, prefix_len: int,
     return allowed
 
 
-def _flash_probs(q32, k32, causal, prefix_len, kv_mask, scale, dropout_rate,
-                 seed):
-    """(P, drop(P)) as ``_block_probs`` computes them, in float32."""
-    s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
+def _flash_probs(q, k, causal, prefix_len, kv_mask, scale, dropout_rate,
+                 seed, native: bool = False):
+    """(P, drop(P)) as ``_block_probs`` computes them, as float32 tensors.
+    With ``native`` (``softmax_native``), in q's dtype: the float32 score
+    product rounded to it, times the scale rounded to it; the row max and
+    ``exp(s - max)`` in it; the normaliser summed in float32, its
+    reciprocal rounded to q's dtype and multiplied in; a kept probability
+    divided by ``1 - rate`` rounded to q's dtype (0.8984375 at rate 0.1 in
+    bfloat16)."""
+    dt = q.dtype if native else torch.float32
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)).to(dt)
+    s = s * torch.tensor(scale, dtype=dt) if native else s * scale
     if causal or kv_mask is not None:
-        s = s.masked_fill(~_allowed(q32.shape[2], k32.shape[2], causal,
-                                    prefix_len, kv_mask, q32.device), NEG_INF)
+        s = s.masked_fill(~_allowed(q.shape[2], k.shape[2], causal,
+                                    prefix_len, kv_mask, q.device), NEG_INF)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
+    z = e.float().sum(dim=-1, keepdim=True)
+    p = e * (1.0 / z).to(dt) if native else e / z
     if dropout_rate <= 0.0:
-        return p, p
+        return p.float(), p.float()
     b, h, lq, lkv = p.shape
-    keep = dropout_bits(seed, b, h, lq, lkv, p.device) >= dropout_threshold(
+    kept = dropout_bits(seed, b, h, lq, lkv, p.device) >= dropout_threshold(
         dropout_rate)
-    return p, torch.where(keep, p / (1.0 - dropout_rate), p.new_zeros(()))
+    keep = (torch.tensor(1.0 - dropout_rate, dtype=dt) if native
+            else 1.0 - dropout_rate)
+    return p.float(), torch.where(kept, p / keep, p.new_zeros(())).float()
+
+
+def _native_mode(q: torch.Tensor, softmax_in_input_dtype: bool) -> bool:
+    """Whether the input-dtype softmax applies: a no-op for float32 inputs,
+    as JAX demotes it (``_pallas_attention``, ``_pallas_attention_bwd``)."""
+    return bool(softmax_in_input_dtype) and q.dtype != torch.float32
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -307,18 +329,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_mask: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None,
                           dropout_rate: float = 0.0,
-                          seed: Optional[int] = None) -> torch.Tensor:
+                          seed: Optional[int] = None,
+                          softmax_in_input_dtype: bool = False
+                          ) -> torch.Tensor:
     """K4's arithmetic in PyTorch ops, as ``_block_probs`` computes it:
     float32 score products; disallowed scores set to -1e30 (a row with no
     allowed key averages V uniformly); float32 softmax, its normaliser over
     every key, kept or dropped; with ``dropout_rate`` > 0 a probability is
     kept where ``dropout_bits(seed, ...)`` >= ``rate · 2^32`` and divided by
     ``1 - rate``; float32 probabilities times float32 V; output in the input
-    dtype."""
+    dtype. ``softmax_in_input_dtype`` takes the softmax in a bfloat16
+    input's dtype (:func:`_flash_probs`), and then the probabilities enter
+    the P.V product rounded to it."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    _, p_used = _flash_probs(q.float(), k.float(), causal, prefix_len,
-                             kv_mask, scale, dropout_rate, seed)
+    _, p_used = _flash_probs(q, k, causal, prefix_len, kv_mask, scale,
+                             dropout_rate, seed,
+                             _native_mode(q, softmax_in_input_dtype))
     return torch.matmul(p_used, v.float()).to(q.dtype)
 
 
@@ -328,16 +355,21 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               kv_mask: Optional[torch.Tensor] = None,
                               scale: Optional[float] = None,
                               dropout_rate: float = 0.0,
-                              seed: Optional[int] = None):
+                              seed: Optional[int] = None,
+                              softmax_in_input_dtype: bool = False):
     """(dq, dk, dv): the closed form of ``_make_bwd_kernel`` in PyTorch ops,
-    float32 throughout and cast to the input dtypes. P is recomputed; the
-    kept mask is recovered as drop(P) > 0; dS = P∘(dP − rowsum(P∘dP)) with
-    the row sum taken from the recomputed P and dP."""
+    float32 throughout and cast to the input dtypes. P is recomputed (in
+    the input dtype with ``softmax_in_input_dtype``, then upcast, as JAX
+    upcasts the mode's probabilities); the kept mask is recovered as
+    drop(P) > 0; dS = P∘(dP − rowsum(P∘dP)) with the row sum taken from the
+    recomputed P and dP; dP of a kept probability is divided by the float32
+    ``1 - rate`` in both modes."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
-    p, p_used = _flash_probs(q32, k32, causal, prefix_len, kv_mask, scale,
-                             dropout_rate, seed)
+    p, p_used = _flash_probs(q, k, causal, prefix_len, kv_mask, scale,
+                             dropout_rate, seed,
+                             _native_mode(q, softmax_in_input_dtype))
     dv = torch.matmul(p_used.transpose(-1, -2), g32)
     dp = torch.matmul(g32, v32.transpose(-1, -2))
     if dropout_rate > 0.0:
@@ -412,13 +444,15 @@ def _flash_checks(name, q, k, v, kv_mask, *more):
 
 
 def _flash_forward(q, k, v, kv_mask, causal: bool, prefix_len: int,
-                   scale: float, dropout_rate: float, seed: Optional[int]):
-    """The plain version for CPU tensors, K4 for CUDA tensors."""
+                   scale: float, dropout_rate: float, seed: Optional[int],
+                   native: bool):
+    """The plain version for CPU tensors, K4 (K4n with ``native``) for CUDA
+    tensors."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      prefix_len=prefix_len, kv_mask=kv_mask,
                                      scale=scale, dropout_rate=dropout_rate,
-                                     seed=seed)
+                                     seed=seed, softmax_in_input_dtype=native)
     name = "flash_attention"
     b, h, lq, d = q.shape
     lkv = k.shape[2]
@@ -432,8 +466,11 @@ def _flash_forward(q, k, v, kv_mask, causal: bool, prefix_len: int,
                        d, *_qkv_strides(name, q, k, v, (0, 1, 2)),
                        *_strides(out, 0, 1, 2), float(scale), int(causal),
                        int(prefix_len), *_dropout_args(dropout_rate, seed),
-                       code)
-        flash_attention.launches += 1
+                       int(native), code)
+        if native:
+            flash_attention.native_launches += 1
+        else:
+            flash_attention.launches += 1
     return out
 
 
@@ -443,19 +480,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_mask: Optional[torch.Tensor] = None,
                         scale: Optional[float] = None,
                         dropout_rate: float = 0.0,
-                        seed: Optional[int] = None):
+                        seed: Optional[int] = None,
+                        softmax_in_input_dtype: bool = False):
     """(dq, dk, dv) of :func:`flash_attention` for the output gradient
     ``g [B, H, Lq, D]``, in the input dtype. CPU tensors take
     :func:`flash_attention_bwd_plain`; CUDA tensors launch K8 (float32 on
     the CUDA cores, or bfloat16 on the tensor cores with 16-byte aligned
-    strides for TMA; D ≤ 64, D contiguous) or raise."""
+    strides for TMA; D ≤ 64, D contiguous), or K8n for bfloat16 with
+    ``softmax_in_input_dtype``, or raise."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    native = _native_mode(q, softmax_in_input_dtype)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, g, causal=causal, prefix_len=prefix_len,
             kv_mask=kv_mask, scale=scale, dropout_rate=dropout_rate,
-            seed=seed)
+            seed=seed, softmax_in_input_dtype=native)
     name = "flash_attention_bwd"
     b, h, lq, d = q.shape
     lkv = k.shape[2]
@@ -481,8 +521,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        stats.data_ptr(),
                        0 if mask is None else mask.data_ptr(), b, h, lq, lkv,
                        d, *strides, float(scale), int(causal), int(prefix_len),
-                       *_dropout_args(dropout_rate, seed), code)
-        flash_attention_bwd.launches += 1
+                       *_dropout_args(dropout_rate, seed), int(native), code)
+        if native:
+            flash_attention_bwd.native_launches += 1
+        else:
+            flash_attention_bwd.launches += 1
     else:
         dk.zero_()
         dv.zero_()
@@ -490,18 +533,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.native_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, prefix_len, scale,
-                dropout_rate, seed):
+                dropout_rate, seed, native):
         ctx.save_for_backward(q, k, v, kv_mask)
         ctx.args = dict(causal=causal, prefix_len=prefix_len, scale=scale,
-                        dropout_rate=dropout_rate, seed=seed)
+                        dropout_rate=dropout_rate, seed=seed,
+                        softmax_in_input_dtype=native)
         return _flash_forward(q, k, v, kv_mask, causal, prefix_len, scale,
-                              dropout_rate, seed)
+                              dropout_rate, seed, native)
 
     @staticmethod
     def backward(ctx, g):
@@ -509,7 +554,7 @@ class _FlashAttention(torch.autograd.Function):
         if g.stride(-1) != 1:
             g = g.contiguous()
         grads = flash_attention_bwd(q, k, v, g, kv_mask=kv_mask, **ctx.args)
-        return (*grads,) + (None,) * 6
+        return (*grads,) + (None,) * 7
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -518,7 +563,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None, dropout_rate: float = 0.0,
                     seed: Optional[int] = None,
                     generator: Optional[torch.Generator] = None,
-                    softmax_in_input_dtype: bool = False) -> torch.Tensor:
+                    softmax_in_input_dtype: Optional[bool] = None
+                    ) -> torch.Tensor:
     """Fused attention over q ``[B, H, Lq, D]``, k/v ``[B, H, Lkv, D]``
     (any strides with D contiguous, e.g. head views of a packed QKV
     product), ``kv_mask`` ``[B or 1, Lkv]`` bool (True = attend). Returns a
@@ -531,11 +577,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``dropout_rate`` > 0 drops probabilities inside the kernel by
     :func:`dropout_bits` of ``seed``, an int in [0, 2^31 - 1), or of one
     drawn from the CPU ``generator``; the backward regenerates the same
-    mask. The input-dtype softmax is not ported and raises."""
-    if softmax_in_input_dtype:
-        raise NotImplementedError(
-            "flash_attention: the input-dtype softmax is not ported "
-            "(ROADMAP Queue 2, K4/K8)")
+    mask. ``softmax_in_input_dtype`` (``SOFTMAX_NATIVE_PALLAS`` where None)
+    takes the softmax in a bfloat16 input's dtype, on K4n and K8n; float32
+    inputs ignore it."""
+    if softmax_in_input_dtype is None:
+        softmax_in_input_dtype = SOFTMAX_NATIVE_PALLAS
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if dropout_rate > 0.0:
@@ -548,10 +594,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         seed = None
     return _FlashAttention.apply(q, k, v, kv_mask, bool(causal),
                                  int(prefix_len), float(scale),
-                                 float(dropout_rate), seed)
+                                 float(dropout_rate), seed,
+                                 _native_mode(q, softmax_in_input_dtype))
 
 
 flash_attention.launches = 0
+flash_attention.native_launches = 0
+
+# The input-dtype softmax in the flash kernels where a caller leaves
+# ``softmax_in_input_dtype`` open (JAX's switch of the same name; off by
+# default, as there). No-op for float32 inputs.
+SOFTMAX_NATIVE_PALLAS = False
+
+
+def set_softmax_native_pallas(value: bool) -> None:
+    """Flip the flash kernels' softmax dtype for the callers that leave it
+    open (JAX's ``set_softmax_native_pallas``)."""
+    global SOFTMAX_NATIVE_PALLAS
+    SOFTMAX_NATIVE_PALLAS = bool(value)
 
 
 # ---------------------------------------------------------------------------
@@ -635,10 +695,10 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if use_pallas is None:
         use_pallas = bias is None and lkv >= PALLAS_MIN_KV_LEN
     if use_pallas:
-        return flash_attention(q, k, v, causal=causal, prefix_len=prefix_len,
-                               kv_mask=kv_mask, scale=scale,
-                               dropout_rate=rate, generator=generator,
-                               softmax_in_input_dtype=softmax_in_input_dtype)
+        return flash_attention(
+            q, k, v, causal=causal, prefix_len=prefix_len, kv_mask=kv_mask,
+            scale=scale, dropout_rate=rate, generator=generator,
+            softmax_in_input_dtype=softmax_in_input_dtype or None)
     return attention_plain(q, k, v, causal=causal, prefix_len=prefix_len,
                            kv_mask=kv_mask, bias=bias, scale=scale,
                            dropout_rate=rate, generator=generator,

@@ -10,9 +10,10 @@ CLIP blocks' ln_2.
 
 :func:`layer_norm` is a ``torch.autograd.Function``: its forward takes the
 plain version for CPU tensors and K2 for CUDA tensors, and its backward is
-``_fused_ln_bwd``'s closed form in PyTorch ops on both. K6 has no backward
-(the frozen teacher's norms need none) and raises on CUDA inputs that
-require grad.
+``_fused_ln_bwd``'s closed form in PyTorch ops on both. So is
+:func:`fused_add_layer_norm` (K6), whose backward is
+``_fused_add_ln_bwd``'s: the LayerNorm closed form of the rounded sum plus
+the sum's own gradient, the same for x and delta.
 """
 
 from __future__ import annotations
@@ -127,17 +128,12 @@ def fused_add_layer_norm_plain(x: torch.Tensor, delta: torch.Tensor,
     return s.to(x.dtype), layer_norm_plain(s, weight, bias, eps).to(x.dtype)
 
 
-def fused_add_layer_norm(x: torch.Tensor, delta: torch.Tensor,
-                         weight: torch.Tensor, bias: torch.Tensor,
-                         eps: float = 1e-5):
-    """``(y, h) = (x + delta, LayerNorm(x + delta))`` over ``[..., W]``. CPU
-    tensors take the plain version; CUDA tensors launch K6 (all contiguous,
-    of one dtype, float32 or bfloat16, nothing requiring grad) or raise."""
+def _fused_add_layer_norm_forward(x, delta, weight, bias, eps: float):
+    """The plain version for CPU tensors, K6 for CUDA tensors."""
     if x.device.type == "cpu":
         return fused_add_layer_norm_plain(x, delta, weight, bias, eps)
     name = "fused_add_layer_norm"
     width = x.shape[-1]
-    _kernel.require_no_grad(name, x, delta, weight, bias)
     _kernel.require_cuda(name, x, delta, weight, bias)
     _kernel.require(name, delta.shape == x.shape,
                     "x and delta must share a shape")
@@ -155,6 +151,45 @@ def fused_add_layer_norm(x: torch.Tensor, delta: torch.Tensor,
                        code)
         fused_add_layer_norm.launches += 1
     return y, h
+
+
+def fused_add_layer_norm_bwd_plain(y: torch.Tensor, weight: torch.Tensor,
+                                   gy: torch.Tensor, gh: torch.Tensor,
+                                   eps: float = 1e-5):
+    """(dx, ddelta, dweight, dbias): ``_fused_add_ln_bwd`` in PyTorch ops.
+    The LayerNorm closed form (:func:`layer_norm_bwd_plain`) of the ROUNDED
+    sum ``y``, not of the float32 sum the forward normalised; its dx in
+    ``y``'s dtype plus ``gy`` in float32, rounded to ``y``'s dtype; x and
+    delta get that same gradient."""
+    dy_ln, dweight, dbias = layer_norm_bwd_plain(y, weight, gh, eps)
+    dy = (dy_ln.float() + gy.float()).to(y.dtype)
+    return dy, dy, dweight, dbias
+
+
+class _FusedAddLayerNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, delta, weight, bias, eps):
+        y, h = _fused_add_layer_norm_forward(x, delta, weight, bias, eps)
+        ctx.save_for_backward(y, weight)
+        ctx.eps = eps
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        y, weight = ctx.saved_tensors
+        return (*fused_add_layer_norm_bwd_plain(y, weight, gy, gh, ctx.eps),
+                None)
+
+
+def fused_add_layer_norm(x: torch.Tensor, delta: torch.Tensor,
+                         weight: torch.Tensor, bias: torch.Tensor,
+                         eps: float = 1e-5):
+    """``(y, h) = (x + delta, LayerNorm(x + delta))`` over ``[..., W]``. CPU
+    tensors take the plain version; CUDA tensors launch K6 (all contiguous,
+    of one dtype, float32 or bfloat16) or raise. Differentiable in x,
+    delta, weight and bias (:func:`fused_add_layer_norm_bwd_plain`)."""
+    return _FusedAddLayerNorm.apply(x, delta, weight, bias, float(eps))
 
 
 fused_add_layer_norm.launches = 0

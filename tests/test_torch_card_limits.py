@@ -1,7 +1,9 @@
 """The limits ``chip_smoke.py`` holds the bf16 tensor-core K1 and K8, the
-W8A8 GEMM K7, the float32 LayerNorm K2 and the int8 GEMV K3 to on the
-card, against kernels with one known fault, on the CPU: a limit that a
-faulty kernel passes checks nothing.
+W8A8 GEMM K7, the float32 LayerNorm K2, the int8 GEMV K3 and the
+input-dtype softmax's K4n and K8n to on the card, against kernels with one
+known fault, on the CPU: a limit that a faulty kernel passes checks
+nothing. K4n and K8n's fault is the mode-off plain version, which their
+bf16 limit passes and their discriminating gate must not.
 
 Each fault is written as the plain version with one step changed, run on
 inputs from a numpy seed at the shapes the card checks use (K1 at the six
@@ -108,6 +110,44 @@ def test_k8_fault_model_is_the_plain_version_without_a_fault():
     args, want = _k8_case()
     for a, b in zip(_k8_faulty(None, *args, **K8_KW), want):
         torch.testing.assert_close(a.float(), b.float(), atol=0, rtol=0)
+
+
+# K4n / K8n: the card's mode cases, cut to one batch row and one head
+# ([B, H, Lq x Lkv], prefix, with a key mask, with dropout)
+NATIVE_CASES = {
+    "joint": (1582, 1582, dict(causal=True, prefix_len=1542)),
+    "key-masked": (1582, 1582, dict(causal=True, prefix_len=1542,
+                                    kv_mask="random")),
+    "dropout 0.1": (1582, 1582, dict(causal=True, prefix_len=1542,
+                                     dropout_rate=RATE, seed=12345)),
+    "beam prefill": (1542, 1542, dict(causal=True, prefix_len=1542)),
+    "key-masked ragged": (1000, 1037, dict(causal=True, prefix_len=900,
+                                           kv_mask="random")),
+}
+
+
+@pytest.mark.parametrize("case", list(NATIVE_CASES))
+def test_native_gate_rejects_the_mode_off_plain_version(case):
+    """The input-dtype softmax's bf16 limit passes the mode-off plain
+    version offered as the mode's kernel (the modes lie within it); the
+    discriminating gate rejects it, forward and backward."""
+    lq, lkv, kw = NATIVE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q, k, v = (_bf16(rng, 1, 1, n, 64) for n in (lq, lkv, lkv))
+    g = _bf16(rng, 1, 1, lq, 64)
+    if "kv_mask" in kw:
+        kw = dict(kw, kv_mask=torch.from_numpy(rng.random((1, lkv)) > 0.1))
+    on = attention.flash_attention_plain(q, k, v, softmax_in_input_dtype=True,
+                                         **kw)
+    off = attention.flash_attention_plain(q, k, v, **kw)
+    _, rel = chip_smoke.rel_err(off, on)
+    assert rel <= chip_smoke.TOL["bfloat16"]
+    assert not chip_smoke.native_gate(off, on, off)[0]
+    on_g = attention.flash_attention_bwd_plain(
+        q, k, v, g, softmax_in_input_dtype=True, **kw)
+    off_g = attention.flash_attention_bwd_plain(q, k, v, g, **kw)
+    for a, b in zip(off_g, on_g):
+        assert not chip_smoke.native_gate(a, b, a)[0]
 
 
 def _k7_case():

@@ -361,12 +361,14 @@ def test_multi_head_attention_routes_long_context_to_k4():
 
 def test_flash_attention_refuses_dropout_and_native_softmax():
     """Dropout without a seed or a generator raises, as JAX's does without
-    a ``dropout_rng``; the input-dtype softmax is not ported."""
-    q = torch.zeros(1, 1, 4, 8)
+    a ``dropout_rng``; the input-dtype softmax, ported since, is refused no
+    more and is a no-op for float32 inputs, as JAX demotes it."""
+    q = torch.randn(1, 1, 4, 8, generator=torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="seed or a generator"):
         attention.flash_attention(q, q, q, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError):
-        attention.flash_attention(q, q, q, softmax_in_input_dtype=True)
+    assert torch.equal(
+        attention.flash_attention(q, q, q, softmax_in_input_dtype=True),
+        attention.flash_attention(q, q, q))
 
 
 @pytest.mark.parametrize("l", [17, 70])
@@ -911,14 +913,12 @@ def test_w8_matmul_refuses_a_k_by_n_contiguous_weight_on_cuda(cuda):
 
 @pytest.mark.cuda
 def test_kernels_without_backward_raise_under_grad_on_cuda(cuda):
-    """K3, K5, K6 and K7 refuse inputs that require grad instead of
-    returning a tensor with no autograd history."""
+    """K3, K5 and K7 refuse inputs that require grad instead of returning
+    a tensor with no autograd history (K6 has a backward)."""
     x = torch.ones(4, 2, 2, 64, device=cuda, requires_grad=True)
-    w = torch.ones(64, device=cuda)
     i8 = torch.ones(64, 8, dtype=torch.int8, device=cuda)
     calls = [
         lambda: attention.blhd_attention(x, x, x),
-        lambda: layernorm.fused_add_layer_norm(x, x, w, w),
         lambda: int8_gemm.w8_matmul(x[0, 0], i8, torch.ones(8, device=cuda)),
         lambda: quantization.int8_matmul(x, i8, torch.ones(8, device=cuda)),
     ]

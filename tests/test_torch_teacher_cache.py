@@ -186,7 +186,8 @@ def test_replay_feed_hands_out_hits_and_keys(tmp_path, top_k):
         cache.put_batch(keys, logits(2, i))
         beam.put_batch(batch["vid-id"], *beams(2, i))
         want[i] = (cache.get_batch(keys), beam.get_batch(batch["vid-id"]))
-    out = list(pcache.CacheReplayFeed(loader, cache, beam_cache=beam))
+    out = list(pcache.CacheReplayFeed(loader, cache, beam_cache=beam,
+                                      device="cpu"))
     assert len(out) == 3
     for i, batch in enumerate(out):
         assert batch["_cache_keys"] == [f"v{i}_{j}__{j}" for j in range(2)]
@@ -222,7 +223,8 @@ def test_replay_feed_prefetches_ahead_of_the_consumer(tmp_path):
         return real(keys)
 
     cache.get_batch = get_batch
-    it = iter(pcache.CacheReplayFeed(_loader(4), cache, depth=2))
+    it = iter(pcache.CacheReplayFeed(_loader(4), cache, depth=2,
+                                     device="cpu"))
     next(it)
     deadline = 1000                                # 10 s
     while len(read) < 3 and deadline:              # batches 1 and 2 read
@@ -235,7 +237,8 @@ def test_replay_feed_prefetches_ahead_of_the_consumer(tmp_path):
 def test_replay_feed_reaps_its_producer_when_abandoned(tmp_path):
     cache = pcache.TeacherLogitsCache(str(tmp_path))
     before = {t.ident for t in threading.enumerate()}
-    it = iter(pcache.CacheReplayFeed(_loader(20), cache, depth=1))
+    it = iter(pcache.CacheReplayFeed(_loader(20), cache, depth=1,
+                                     device="cpu"))
     next(it)
     it.close()                                     # the consumer gives up
     left = [t for t in threading.enumerate()
@@ -252,4 +255,4 @@ def test_replay_feed_needs_ids(tmp_path, drop, beam):
         str(tmp_path))) if beam
         else dict(cache=pcache.TeacherLogitsCache(str(tmp_path))))
     with pytest.raises(ValueError, match="vid-id"):
-        list(pcache.CacheReplayFeed([batch], **kw))
+        list(pcache.CacheReplayFeed([batch], device="cpu", **kw))
