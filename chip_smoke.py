@@ -13,7 +13,10 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
 2. build: compile ``rtvc_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``build/`` and load it; count the tensor-core instructions of the bf16
    K1, K3, K4/K5, K4n, K8 and K8n kernels and the int8 K7 in its SASS (a
-   wait after every warpgroup product fails);
+   wait after every warpgroup product fails); run the probe of K4n/K8n's
+   exact fast exponential and dropout division on every input of their
+   bf16 domains (any mismatch fails; the inputs that took ``expf`` or a
+   division are counted);
 3. kernels: K1 (window attention), K2 (LayerNorm) and K3 (int8 GEMV,
    with a warm and a cold L2, beside the bf16 projection it replaces) at
    the caption step's shapes, K2 and K3 also at the beam's B·k rows, K2,
@@ -33,11 +36,19 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    cases, each held to the bf16 limit and to a discriminating gate (its
    mean error below half the mode-off plain version's mean distance from
    the mode's plain version, which the limit alone cannot tell apart) and
-   timed beside the mode-off kernel. Then K8's one caller, the gradient of
-   ``flash_attention`` through autograd, runs once at the joint shape with
-   dropout, in both softmax modes, launch counts reset before and read
-   after; float32 with the mode on must give the mode-off bits; K6's
-   gradient under autograd at [12336, 1024] is held to its bf16 limit;
+   timed beside the mode-off kernel; K8n runs on the statistics its K4n
+   forward left, as autograd runs it, and at the joint shape also
+   standalone (``flash_attention_bwd``, after K4n's stats-only launch),
+   and the stats-only launch is held against its plain version at the
+   joint and key-masked cases (the max bit for bit, bf16(1 / z) within one
+   bf16 ulp). Then K8's one caller, the gradient of ``flash_attention``
+   through autograd, runs once at the joint shape with dropout, in both
+   softmax modes, launch counts reset before and read after (in the mode:
+   K4n and K8n once, the stats-only K4n never; a standalone
+   ``flash_attention_bwd`` launches it once; a forward keeps statistics
+   only with grad); float32 with the mode on must give the mode-off bits;
+   K6's gradient under autograd at [12336, 1024] is held to its bf16
+   limit;
 4. slice: the full-width student (random weights from a seeded generator,
    bfloat16) serves 8 distinct 480×640 6-frame windows at batch 1 and as
    one batch of 8, through the default and the ``vocab_int8`` caption
@@ -223,6 +234,11 @@ KERNELS = {
     "flash_attention_bwd_native": (
         "rtvc_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
         "rtvc_tpu/ops/attention.py:136"),
+    # K4n's first two sweeps alone: the row statistics K8n takes where no
+    # forward left them (a standalone flash_attention_bwd call)
+    "flash_attention_stats_native": (
+        "rtvc_tpu_torch/csrc/flash_attention_sm90.cu",
+        "rtvc_tpu/ops/attention.py:136"),
 }
 # the sampled teacher beam of the generate phase
 SAMPLE = dict(do_sample=True, temperature=1.0, top_k=50, top_p=0.9)
@@ -357,6 +373,20 @@ def native_gate(got, want, off) -> tuple:
     return err < 0.5 * gap, err, gap
 
 
+def stats_gate(got, want) -> tuple:
+    """K4n's row statistics [..., 2] against their plain version: (passes,
+    max |got - want|, the largest bf16 ulp distance of the reciprocals).
+    The max must agree bit for bit (fmaxf in any order), bf16(1 / z) within
+    one bf16 ulp (the float32 sum runs in another order)."""
+    import torch
+    err = float((got - want).abs().max())
+    same_max = torch.equal(got[..., 0], want[..., 0])
+    bits = [t[..., 1].to(torch.bfloat16).view(torch.int16).int()
+            for t in (got, want)]
+    ulps = int((bits[0] - bits[1]).abs().max())
+    return same_max and ulps <= 1, err, ulps
+
+
 def limit(name: str, dtype: str) -> tuple:
     """(tolerance, floor of the scale) a kernel's case is held to: TOL (or
     FLOOR_ONE_TOL) of max(1, max|plain|), or OWN_SCALE_TOL of
@@ -431,24 +461,38 @@ def kernel_cases(dev, g):
             attention.flash_attention_plain, args, kw, Y.flash_work,
             Y.flash_library)
 
-    def native_mode(name, label, args, kw, reps):
+    def native_mode(name, label, args, kw, reps, standalone=False):
         """K4n or K8n (``name``) in the input-dtype softmax against the
         mode's plain version; beside it the mode-off plain version (the
         discriminating gate's reference) and the mode-off kernel (timed
-        beside). The bound is the function's own work, as K4's or K8's."""
+        beside). K8n runs as autograd runs it, on the statistics its
+        forward left (``k8n_after_forward``), or ``standalone``, as
+        ``flash_attention_bwd`` (a stats-only K4n launch first). The bound
+        is the function's own work, as K4's or K8's."""
         fwd = name == "flash_attention_native"
         kern = attention.flash_attention if fwd else \
             attention.flash_attention_bwd
         plain = attention.flash_attention_plain if fwd else \
             attention.flash_attention_bwd_plain
-        add(name, label, reps,
-            functools.partial(kern, softmax_in_input_dtype=True),
+        native = functools.partial(kern, softmax_in_input_dtype=True)
+        if not fwd and not standalone:
+            native = k8n_after_forward(*args, **kw)
+        add(name, label, reps, native,
             functools.partial(plain, softmax_in_input_dtype=True), args, kw,
             Y.flash_work if fwd else Y.flash_bwd_work,
             Y.flash_library if fwd else Y.flash_bwd_library)
         cases[-1].update(
             off=lambda: plain(*args, **kw),
             off_kern=lambda: kern(*args, softmax_in_input_dtype=False, **kw))
+
+    def native_stats(label, args, kw):
+        """K4n's stats-only launch against its plain version
+        (``stats_gate``)."""
+        add("flash_attention_stats_native", label, 10,
+            attention.flash_attention_stats,
+            attention.flash_attention_stats_plain, args, kw,
+            Y.flash_stats_work, Y.flash_stats_library)
+        cases[-1].update(check=stats_gate)
 
     def w8_cold(label, variants, replaced):
         """K3 with a cold L2: each call of the kernel, its plain version
@@ -740,6 +784,14 @@ def kernel_cases(dev, g):
                  dict(causal=True, prefix_len=900, kv_mask=rmask), 3)
             mode(fb, f"{dn} dropout 0.1 joint [{b},{h},{lq},{d}]",
                  heads + (g_joint,), dict(joint, **drop), 3)
+            mode(fb, f"{dn} standalone joint [{b},{h},{lq},{d}] prefix "
+                     f"{prefix}", heads + (g_joint,), joint, 3,
+                 standalone=True)
+            # the stats-only launch K8n's standalone call makes
+            native_stats(f"{dn} joint [{b},{h},{lq},{d}] prefix {prefix}",
+                         heads[:2], joint)
+            native_stats(f"{dn} key-masked [{b},{h},{lq},{d}]", heads[:2],
+                         dict(joint, kv_mask=mask))
         rows = WINDOWS * FRAMES * 257
         joint_rows = WINDOWS * lq
         for width, n, eps in ((1024, rows, 1e-5), (768, joint_rows, 1e-12)):
@@ -786,6 +838,46 @@ def kernel_cases(dev, g):
     return cases
 
 
+def k8n_after_forward(q, k, v, g, *, causal=False, prefix_len=0,
+                      kv_mask=None, scale=None, dropout_rate=0.0, seed=None):
+    """K8n as ``loss.backward()`` runs it after a forward in the input-dtype
+    softmax: the forward (K4n, run here once) leaves the rows' statistics,
+    which each call of the returned function hands to K8n."""
+    from rtvc_tpu_torch.ops import attention
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    stats = attention._stats_buffer(q)
+    attention._flash_forward(q, k, v, kv_mask, causal, prefix_len, scale,
+                             dropout_rate, seed, True, stats=stats)
+    return lambda *_, **__: attention._flash_backward(
+        q, k, v, g, kv_mask, causal, prefix_len, scale, dropout_rate, seed,
+        True, row_stats=stats)
+
+
+def native_probe(dev) -> dict:
+    """K4n/K8n's exact fast exponential and dropout division
+    (``native_exp``, ``native_div`` in csrc/flash_attention_sm90.cuh)
+    on every input of their bf16 domains (d <= 0 and -inf; p in [0, 1] at
+    rate 0.1) against the per-score ``bf16r(expf(d))`` and ``bf16r(p / keep_b)``,
+    by ``attention.native_probe``. It fails on any mismatch, on an input whose
+    normal expf(d) the exponential's bracket misses, or on a short
+    domain."""
+    import struct
+    from rtvc_tpu_torch.ops import attention
+    n = attention.native_probe(dev, 0.1)
+    rec = dict(exp_inputs=n[0], exp_mismatches=n[1], exp_fallback_pairs=n[2],
+               exp_bracket_misses=n[3],
+               exp_max_rel_err=struct.unpack("<f", struct.pack("<i", n[4]))[0],
+               div_inputs=n[5], div_mismatches=n[6], div_fallback_pairs=n[7])
+    log(f"  probe: exponential {n[0]} inputs, {n[1]} mismatches, {n[2]} took "
+        f"expf, {n[3]} normal expf(d) outside the bracket, largest "
+        f"relative error {rec['exp_max_rel_err']:.3e}; dropout division "
+        f"{n[5]} inputs, {n[6]} mismatches, {n[7]} divided")
+    if n[1] or n[3] or n[6] or n[0] != 32642 or n[5] != 16257:
+        raise AssertionError(f"the exact fast exponential or division "
+                             f"differs from the per-score formula: {rec}")
+    return rec
+
+
 def library_ms(yardstick, reps: int, samples: int = 1) -> tuple:
     """(device ms per call or None, the call's name, "graph" or "eager",
     every timing in ms) of a library yardstick: the median of ``samples``
@@ -822,16 +914,23 @@ def kernel_phase(dev):
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [
             (got, want)]
         dtype = str(pairs[0][1].dtype).removeprefix("torch.")
-        tol, floor = limit(name, dtype)
-        errs = [rel_err(a, b, floor) for a, b in pairs]
-        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
         finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
-        ok = rel <= tol and finite
-        scale = "max(1, max|plain|)" if floor == 1.0 else "max|plain|"
-        line = (f"  {name:20s} {label:52s} max_abs_err {err:.3e} = {rel:.2e}"
-                f" of {scale} (tol {tol:g})")
-        rec = dict(name=name, case=label, max_abs_err=err, rel_err=rel,
-                   tol=tol, tol_of=scale)
+        if "check" in c:
+            passed, err, ulps = c["check"](got, want)
+            ok = passed and finite
+            line = (f"  {name:20s} {label:52s} max_abs_err {err:.3e}, max "
+                    f"bit for bit, 1 / z within {ulps} bf16 ulp (tol 1)")
+            rec = dict(name=name, case=label, max_abs_err=err, ulps=ulps)
+        else:
+            tol, floor = limit(name, dtype)
+            errs = [rel_err(a, b, floor) for a, b in pairs]
+            err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            ok = rel <= tol and finite
+            scale = "max(1, max|plain|)" if floor == 1.0 else "max|plain|"
+            line = (f"  {name:20s} {label:52s} max_abs_err {err:.3e} = "
+                    f"{rel:.2e} of {scale} (tol {tol:g})")
+            rec = dict(name=name, case=label, max_abs_err=err, rel_err=rel,
+                       tol=tol, tol_of=scale)
         if name in DETERMINISTIC:
             same = torch.equal(got, c["kern"]())
             line += f" second run {'bitwise equal' if same else 'DIFFERS'}"
@@ -858,10 +957,10 @@ def kernel_phase(dev):
         else:
             ms, timing = device_ms(c["kern"], reps)
             plain_ms, plain_timing = device_ms(c["plain"], reps)
-            # SDPA's backward, bf16 K8's yardstick, moved between runs
-            # (1541-3226 us at the joint shape): the median of three
-            samples = 3 if (name, dtype) == ("flash_attention_bwd",
-                                             "bfloat16") else 1
+            # SDPA's backward, bf16 K8's and K8n's yardstick, moved between
+            # runs (1541-3226 us at the joint shape): the median of three
+            samples = 3 if dtype == "bfloat16" and name in (
+                "flash_attention_bwd", "flash_attention_bwd_native") else 1
             lib_ms, lib_call, lib_timing, lib_runs = library_ms(
                 c["library"](), reps, samples)
             bound_s, bound_by = c["work"].bound()
@@ -909,8 +1008,12 @@ def flash_grad_path(dev, native: bool = False) -> dict:
     before and read after; K4 and K8 must launch once each, and the
     gradients must equal ``flash_attention_bwd_plain`` with the same seed
     (the seed is the generator's next draw). With ``native``, in the
-    input-dtype softmax: K4n and K8n must launch once each, K4 and K8 not,
-    and the gradients must also pass the discriminating gate."""
+    input-dtype softmax: K4n and K8n must launch once each, K4, K8 and the
+    stats-only K4n not (K8n takes the forward's statistics), and the
+    gradients must also pass the discriminating gate; then a standalone
+    ``flash_attention_bwd`` call must launch the stats-only K4n and K8n
+    once each and give the same gradients, and a forward under
+    ``torch.no_grad()`` must allocate its output alone (no statistics)."""
     import torch
     from rtvc_tpu_torch.ops import attention
     from rtvc_tpu_torch.ops.dropout import draw_seed
@@ -950,11 +1053,44 @@ def flash_grad_path(dev, native: bool = False) -> dict:
     want_launches = {"flash_attention" + suffix: 1,
                      "flash_attention_bwd" + suffix: 1}
     if native:
-        want_launches.update(flash_attention=0, flash_attention_bwd=0)
+        want_launches.update(flash_attention=0, flash_attention_bwd=0,
+                             flash_attention_stats_native=0)
     check_launches(label, launched, want_launches)
     if not (err <= tol and passed):
         raise AssertionError(f"{label}: gradients disagree with "
                              f"flash_attention_bwd_plain")
+    if native:
+        torch.cuda.synchronize()
+        reset_counts()
+        alone = attention.flash_attention_bwd(
+            q, k, v, go, seed=seed, softmax_in_input_dtype=True, **kw)
+        torch.cuda.synchronize()
+        standalone = counts()
+        err_alone = max(rel_err(a, w, floor)[1] for a, w in zip(alone, want))
+        # the statistics buffers a forward allocates, without and with
+        # grad
+        made, allocs, real = [], [], attention._stats_buffer
+        attention._stats_buffer = lambda t: made.append(1) or real(t)
+        try:
+            for grad in (False, True):
+                with torch.set_grad_enabled(grad):
+                    attention.flash_attention(
+                        *leaves, seed=seed, softmax_in_input_dtype=True, **kw)
+                allocs.append(len(made) - sum(allocs))
+        finally:
+            attention._stats_buffer = real
+        log(f"  flash_attention_bwd standalone (input-dtype softmax): "
+            f"launches {standalone}, grads vs plain {err_alone:.3e} of "
+            f"max|plain|; statistics buffers of a forward without / with "
+            f"grad: {allocs[0]} / {allocs[1]}")
+        check_launches("standalone flash_attention_bwd", standalone, {
+            "flash_attention_stats_native": 1,
+            "flash_attention_bwd_native": 1, "flash_attention_native": 0})
+        if err_alone > tol or allocs != [0, 1]:
+            raise AssertionError("standalone flash_attention_bwd, or the "
+                                 "forward's statistics buffers")
+        launched["flash_attention_stats_native"] = standalone[
+            "flash_attention_stats_native"]
     return launched
 
 
@@ -1091,12 +1227,16 @@ def wrappers() -> dict:
 
 def counters() -> dict:
     """Each kernel's (wrapper, its count's attribute), by the kernel's name
-    in KERNELS: K4n and K8n count on K4's and K8's wrappers."""
+    in KERNELS: K4n and K8n count on K4's and K8's wrappers, the stats-only
+    K4n on ``flash_attention_stats``."""
     out = {name: (fn, "launches") for name, fn in wrappers().items()}
     out["flash_attention_native"] = (out["flash_attention"][0],
                                      "native_launches")
     out["flash_attention_bwd_native"] = (out["flash_attention_bwd"][0],
                                          "native_launches")
+    from rtvc_tpu_torch.ops import attention
+    out["flash_attention_stats_native"] = (attention.flash_attention_stats,
+                                           "launches")
     return out
 
 
@@ -2907,6 +3047,7 @@ def main(argv=None) -> int:
         if op != "HMMA" and ops["WARPGROUP.DEPBAR"] >= ops[op]:
             raise AssertionError(f"the {family} kernels wait after every "
                                  f"{op}: ptxas serialised the products")
+    probe = native_probe(dev)
 
     t0 = time.perf_counter()
     log("[kernels] kernel vs plain on the card")
@@ -2968,7 +3109,8 @@ def main(argv=None) -> int:
                "flash_attention_bwd": "bfloat16 joint",
                "dw3x3_wgrad": "bfloat16 stage0",
                "flash_attention_native": "bfloat16 joint",
-               "flash_attention_bwd_native": "bfloat16 joint"}
+               "flash_attention_bwd_native": "bfloat16 joint",
+               "flash_attention_stats_native": "bfloat16 joint"}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in records if r["name"] == name]
@@ -2995,13 +3137,18 @@ def main(argv=None) -> int:
         if name in ("flash_attention_bwd", "flash_attention_bwd_native"):
             row.update(launches=grad_path[name],
                        launches_from="flash_attention autograd, kernel phase")
+        if name == "flash_attention_stats_native":
+            row.update(launches=grad_path[name],
+                       launches_from="standalone flash_attention_bwd, "
+                                     "kernel phase")
         if "off_kernel_ms" in head:
             row.update(mode_off_ms=head["off_kernel_ms"])
         kernels.append(row)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(device=smi, sass=sass, kernels=kernels,
-                           cases=records, grad_checks=extra, slice=sl,
+                           cases=records, grad_checks=extra,
+                           native_probe=probe, slice=sl,
                            serve=sv, eval=ev, teacher=te, generate=gn,
                            train=tr, loop=lp), f,
                       indent=1)

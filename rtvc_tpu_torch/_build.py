@@ -40,10 +40,13 @@ SIGNATURES = {
     "rtvc_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rtvc_add_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "rtvc_w8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ... then K4n's row statistics (or null) and stats-only flag
     "rtvc_flash_attention": [_P] * 5 + [_I] * 5 + [_L] * 12
-                            + [_F, _I, _I] + _DROPOUT + [_I, _P],
+                            + [_F, _I, _I] + _DROPOUT + [_P, _I, _I, _P],
+    # ... then K8n's Delta scratch (or null)
     "rtvc_flash_attention_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12
-                                + [_F, _I, _I] + _DROPOUT + [_I, _P],
+                                + [_F, _I, _I] + _DROPOUT + [_P, _I, _P],
+    "rtvc_native_probe": [_P, _F, _P],
     "rtvc_blhd_attention": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _I, _P],
     "rtvc_w8a8_matmul": [_P] * 6 + [_I] * 4 + [_P],
     "rtvc_dw3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

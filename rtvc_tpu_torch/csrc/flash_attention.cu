@@ -546,22 +546,29 @@ int backward(const BwdArgs& a, int B, cudaStream_t stream) {
 
 // q/k/v/out indexed [b, h, row, d] through the given element strides (d
 // contiguous); kv_mask [B, Lkv] bytes or null; dropout on when `dropout`;
-// `native` (bfloat16 only) takes the input-dtype softmax, K4n.
+// `native` (bfloat16 only) takes the input-dtype softmax, K4n, which also
+// writes the rows' (max, bf16(1 / z)) to `stats` where it is not null
+// (float32, B * H * ceil(Lq / 64) * 128 values); `stats_only` writes those
+// alone (no out).
 extern "C" int rtvc_flash_attention(
     const void* q, const void* k, const void* v, void* out,
     const void* kv_mask, int B, int H, int Lq, int Lkv, int D, long long qb,
     long long qh, long long ql, long long kb, long long kh, long long kl,
     long long vb, long long vh, long long vl, long long ob, long long oh,
     long long ol, float scale, int causal, int prefix_len, unsigned seed,
-    unsigned thresh, float keep, int dropout, int native, int dtype,
-    void* stream) {
+    unsigned thresh, float keep, int dropout, int native, void* stats,
+    int stats_only, int dtype, void* stream) {
   if (rtvc::bad_shape(B, H, D, Lq, Lkv)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  if ((stats != nullptr || stats_only) &&
+      !(native && dtype == rtvc::kBFloat16 && (stats != nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (dtype == rtvc::kBFloat16) {
     const rtvc::Sm90Attention a{
         q, k, v, out, static_cast<const uint8_t*>(kv_mask), B, H, Lq, Lkv, D,
         qb, qh, ql, kb, kh, kl, vb, vh, vl, ob, oh, ol, scale, causal,
-        prefix_len, seed, thresh, keep, dropout, native};
+        prefix_len, seed, thresh, keep, dropout, native,
+        static_cast<float*>(stats), stats_only};
     return rtvc::attention_sm90(a, s);
   }
   // the input-dtype softmax is a no-op for float32 (the wrapper demotes it)
@@ -599,8 +606,10 @@ extern "C" int rtvc_blhd_attention(
 // contiguous); dq [B, H, Lq, D] and dk/dv [B, H, Lkv, D] contiguous in the
 // input dtype; stats a float32 scratch of 3 * B * H * ceil(Lq / 64) * 64
 // values. bfloat16 calls go to the tensor-core kernels of
-// flash_attention_bwd_sm90.cu (K8n with `native`), float32 calls to the
-// two kernels above.
+// flash_attention_bwd_sm90.cu, float32 calls to the two kernels above.
+// K8n (`native`, bfloat16 only) reads the forward's statistics from
+// `stats` (K4n's layout) and takes `delta`, a float32 scratch of
+// B * H * ceil(Lq / 64) * 64 values.
 extern "C" int rtvc_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* g, void* dq,
     void* dk, void* dv, void* stats, const void* kv_mask, int B, int H,
@@ -608,15 +617,16 @@ extern "C" int rtvc_flash_attention_bwd(
     long long kb, long long kh, long long kl, long long vb, long long vh,
     long long vl, long long gb, long long gh, long long gl, float scale,
     int causal, int prefix_len, unsigned seed, unsigned thresh, float keep,
-    int dropout, int native, int dtype, void* stream) {
+    int dropout, int native, void* delta, int dtype, void* stream) {
   if (rtvc::bad_shape(B, H, D, Lq, Lkv)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == rtvc::kBFloat16) {
+    if (native && delta == nullptr) return (int)cudaErrorInvalidValue;
     const rtvc::Sm90AttentionBwd a{
         q, k, v, g, dq, dk, dv, static_cast<float*>(stats),
         static_cast<const uint8_t*>(kv_mask), B, H, Lq, Lkv, D, qb, qh, ql,
         kb, kh, kl, vb, vh, vl, gb, gh, gl, scale, causal, prefix_len, seed,
-        thresh, keep, dropout, native};
+        thresh, keep, dropout, native, static_cast<float*>(delta)};
     return rtvc::attention_bwd_sm90(a, s);
   }
   if (native) return (int)cudaErrorInvalidValue;
@@ -626,4 +636,11 @@ extern "C" int rtvc_flash_attention_bwd(
                         scale, causal, prefix_len,
                         {seed, thresh, keep, dropout}};
   return rtvc::backward<float>(a, B, s);
+}
+
+// The probe of K4n/K8n's exact fast exponential and dropout division
+// (flash_attention_sm90.cu): `out`, 8 ints on the card, zeroed, receives
+// the counts of rtvc::native_probe_sm90.
+extern "C" int rtvc_native_probe(int* out, float keep, void* stream) {
+  return rtvc::native_probe_sm90(out, keep, static_cast<cudaStream_t>(stream));
 }

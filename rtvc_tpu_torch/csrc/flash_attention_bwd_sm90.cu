@@ -62,12 +62,19 @@
 // K4n's bf16 probabilities (flash_attention_sm90.cu: bf16 scores, max and
 // exp, a float32 normaliser whose bf16 reciprocal multiplies each e), upcast
 // to float32; the rest is K8's math, dP of a kept key divided by the
-// float32 1 - rate. The row max is known only after a sweep, and Delta
-// needs the normaliser, so attention_bwd_dq_native_sm90_kernel sweeps the
-// keys four times: S for the max, S for the normaliser, S and dP for Delta,
-// S and dP for dS and dQ += dS K; its stats are (max, bf16(1 / z), Delta).
-// The dK/dV kernel serves both modes (kNative): P^T from those stats.
-// The bound counts the function's own five products, as K8's.
+// float32 1 - rate. The row statistics (max, bf16(1 / z)) come from the
+// forward: K4n writes them where autograd will need them, and a standalone
+// call takes them from K4n's stats-only launch. So
+// attention_bwd_dq_native_sm90_kernel sweeps the keys twice, as K8's dQ
+// kernel does: S and dP for Delta = Sum P dP (from the recomputed P and
+// dP, as JAX takes it; S and dP of tile t + 1 in flight while tile t's
+// terms are summed), then S and dP for dS and dQ += dS K. Delta goes to a
+// float32 scratch of 64 rows a tile; the dK/dV kernel's kNative arm
+// copies each q tile's (max, 1 / z) and Delta into one stage, in K8's
+// order, and forms P^T in bf16 pairs with K4n's exact fast exponential and
+// dropout division; drop(P) is bf16 already, so dV += drop(P)^T dO is one
+// bf16 term where K8 takes two. The bound counts the function's own five
+// products, as K8's.
 
 #include "common.cuh"
 #include "flash_attention_sm90.cuh"
@@ -95,15 +102,15 @@ struct BwdArgs {
   float inv_keep;  // 1 / (1 - rate), or 1
   int q_head_inner, k_head_inner, v_head_inner, g_head_inner;
   float keep;      // 1 - rate, or 1: K8n rounds it (and scale) to bf16
+  float* delta;    // K8n: the rows' Delta (stats holds K4n's statistics)
 };
 
 // the score x of (row, key), already in the log2 domain, as _block_probs
 // masks it; `kept` is the key mask's verdict
 __device__ __forceinline__ float masked(float x, int row, int key, bool kept,
-                                        const BwdArgs& a,
-                                        float sentinel = kMasked) {
+                                        const BwdArgs& a) {
   const bool ok = kept && (!a.causal || key < a.prefix_len || key <= row);
-  return key < a.Lkv ? (ok ? x : sentinel) : -INFINITY;
+  return key < a.Lkv ? (ok ? x : kMasked) : -INFINITY;
 }
 
 __device__ __forceinline__ bool dropped(const BwdArgs& a, int b, int h,
@@ -136,6 +143,12 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 struct QRows {
   int row0, row1, row_min, cq, b, h;
   const uint8_t* mask;  // this batch row's [Lkv] key mask, or null
+};
+
+// K8n's dQ-kernel place of a thread: QRows, and the key mask's bits in
+// shared memory (load_kept_bits) or null
+struct NQRows : QRows {
+  const uint32_t* bits;
 };
 
 // The scores of one S tile (keys k0 + [0, 64)) in the log2 domain, masked
@@ -424,9 +437,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// Kernel 1n: K8n's dQ and row statistics, one block per (64 query rows,
-// batch x head): four sweeps over the keys (see the note at the top). The
-// producer streams K alone for the first two and K with V for the others.
+// Kernel 1n: K8n's dQ and Delta, one block per (64 query rows, batch x
+// head), from the forward's row statistics (max, bf16(1 / z)): two sweeps
+// over the keys, as K8's (see the note at the top). The first takes S and
+// dP of tile t + 1 while tile t's Delta terms are summed; the second
+// issues S and dP of tile t + 1 with dQ += dS K of tile t.
 template <bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
     attention_bwd_dq_native_sm90_kernel(
@@ -435,7 +450,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         const __grid_constant__ CUtensorMap tv,
         const __grid_constant__ CUtensorMap tg, const BwdArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023u) & ~1023u;
   const uint32_t sQ = base;
   const uint32_t sG = sQ + kTile;
   const uint32_t sK = sG + kTile;
@@ -443,6 +459,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const uint32_t q_full = sV + kStages * kTile;
   const uint32_t full0 = q_full + 8;
   const uint32_t empty0 = full0 + 8 * kStages;
+  // the key mask's bits, 2 words a tile
+  uint32_t* bits = reinterpret_cast<uint32_t*>(
+      smem_raw + (empty0 + 8 * kStages - raw_base));
 
   const int b = blockIdx.y / a.H;
   const int h = blockIdx.y - b * a.H;
@@ -462,27 +481,25 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
 
   if (warp == 4) {
-    // ---- producer: Q and dO once, then K (sweeps 1-2), K and V (3-4) ----
+    // ---- producer: Q and dO once, then the K/V ring, two sweeps ----
     if (lane == 0) {
       mbar_expect_tx(q_full, 2 * kTile);
       tma_rows(sQ, &tq, q_full, a.q_head_inner, q0, h, b);
       tma_rows(sG, &tg, q_full, a.g_head_inner, q0, h, b);
-      for (int u = 0; u < 4 * tiles; ++u) {
+      for (int u = 0; u < 2 * tiles; ++u) {
         const int s = u % kStages, t = u % tiles;
-        const bool with_v = u >= 2 * tiles;
         mbar_wait(empty0 + 8 * s, ((u / kStages) & 1) ^ 1);
-        mbar_expect_tx(full0 + 8 * s, with_v ? 2 * kTile : kTile);
+        mbar_expect_tx(full0 + 8 * s, 2 * kTile);
         tma_rows(sK + s * kTile, &tk, full0 + 8 * s, a.k_head_inner, t * 64,
                  h, b);
-        if (with_v)
-          tma_rows(sV + s * kTile, &tv, full0 + 8 * s, a.v_head_inner,
-                   t * 64, h, b);
+        tma_rows(sV + s * kTile, &tv, full0 + 8 * s, a.v_head_inner, t * 64,
+                 h, b);
       }
     }
     return;
   }
   // ---- consumer warpgroup: rows q0 + [0, 64) ----
-  QRows r;
+  NQRows r;
   r.row_min = q0;
   r.row0 = q0 + 16 * warp + lane / 4;
   r.row1 = r.row0 + 8;
@@ -490,111 +507,145 @@ __global__ void __launch_bounds__(kThreads, 2)
   r.b = b;
   r.h = h;
   r.mask = a.kv_mask == nullptr ? nullptr : a.kv_mask + (size_t)b * a.Lkv;
-  const float scale_b = bf16r(a.scale);
+  r.bits = nullptr;
+  if (r.mask != nullptr) {
+    load_kept_bits(bits, r.mask, a.Lkv, warp, lane);
+    warpgroup_sync();
+    r.bits = bits;
+  }
+  const uint32_t scale2 = bcast2(bf16r(a.scale));
+  const size_t tile_id = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  // the forward's statistics of this thread's rows (64 maxima, then 64
+  // reciprocals a tile)
+  const float* fst = a.stats + tile_id * 128;
+  const uint32_t m2[2] = {bcast2(fst[r.row0 - q0]), bcast2(fst[r.row1 - q0])};
+  const uint32_t rz2[2] = {bcast2(fst[64 + r.row0 - q0]),
+                           bcast2(fst[64 + r.row1 - q0])};
   uint64_t dq[4], dg[4], dk[4], dv[4];
-  float sc[32], dp[32], x[32], acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f}, rz[2];
-  float delta[2] = {0.f, 0.f};
-  uint32_t dhi[16], dlo[16];
+  tile_descs<2>(dq, sQ);
+  tile_descs<2>(dg, sG);
   mbar_wait(q_full, 0);
 
-  // S (and with `with_dp` dP) of ring slot u, waited; the slot stays full
-  auto products = [&](int u, bool with_dp) {
+  // S and dP of one tile
+  struct SdP {
+    float s[32], dp[32];
+  } ba, bb;
+  // S and dP of ring slot u, issued (two groups); Q Q^T and dO dO^T where
+  // !real
+  auto issue = [&](SdP& buf, int u, bool real) {
     const int s = u % kStages;
-    mbar_wait(full0 + 8 * s, (u / kStages) & 1);
-    fence_regs(sc);
-    fence_regs(dp);
-    tile_descs<2>(dq, sQ);
-    tile_descs<2>(dk, sK + s * kTile);
-    tile_descs<2>(dg, sG);
-    tile_descs<2>(dv, sV + s * kTile);
+    if (real) mbar_wait(full0 + 8 * s, (u / kStages) & 1);
+    tile_descs<2>(dk, real ? sK + s * kTile : sQ);
+    tile_descs<2>(dv, real ? sV + s * kTile : sG);
+    fence_regs(buf.s);
+    fence_regs(buf.dp);
     wgmma_fence();
-    issue_s(sc, dq, dk);
-    if (with_dp) issue_s(dp, dg, dv);
-    wgmma_wait();
-    fence_regs(sc);
-    fence_regs(dp);
-    native_scores(sc, x, (u % tiles) * 64, r, a, scale_b);
+    issue_s(buf.s, dq, dk);
+    issue_s(buf.dp, dg, dv);
   };
   auto release = [&](int u) {
     if (lane == 0) mbar_arrive(empty0 + 8 * (u % kStages));
   };
-  auto quad_reduce = [&](float (&v)[2], bool is_max) {
+  // P of one tile in pairs, p2[q] as native_pairs places it
+  auto probs = [&](const float (&sc)[32], uint32_t (&p2)[16], int t) {
+    uint32_t x2[16];
+    native_pairs(sc, x2, t * 64, r, a, scale2);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int q = 0; q < 16; ++q) x2[q] = bsub2(x2[q], m2[q & 1]);
+    native_exp(x2, p2);
 #pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float o = __shfl_xor_sync(0xffffffffu, v[j], off);
-        v[j] = is_max ? fmaxf(v[j], o) : v[j] + o;
-      }
-    }
+    for (int q = 0; q < 16; ++q) p2[q] = bmul2(p2[q], rz2[q & 1]);
   };
 
-  // sweep 1: the bf16 row max
-  for (int t = 0; t < tiles; ++t) {
-    products(t, false);
-    release(t);
+  // sweep 1: Delta = Sum P dP, dP 0 where dropped, / keep where kept
+  float delta[2] = {0.f, 0.f};
+  auto delta_tile = [&](SdP& buf, int t) {
+    fence_regs(buf.s);
+    fence_regs(buf.dp);
+    uint32_t p2[16];
+    probs(buf.s, p2, t);
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], x[i]);
-  }
-  quad_reduce(m, true);
-  // sweep 2: the float32 normaliser of the bf16 exponentials
-  for (int t = 0; t < tiles; ++t) {
-    products(tiles + t, false);
-    release(tiles + t);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int j = (i >> 1) & 1;
-      z[j] += bf16r(expf(bf16r(x[i] - m[j])));
+    for (int q = 0; q < 16; ++q) {
+      const int row = (q & 1) ? r.row1 : r.row0;
+      const int key = t * 64 + 8 * (q / 2) + r.cq;
+      const float2 p = unpack_bf16(p2[q]);
+      delta[q & 1] += p.x * kept_dp<kDrop>(buf.dp[2 * q], a, b, h, row, key) +
+                      p.y * kept_dp<kDrop>(buf.dp[2 * q + 1], a, b, h, row,
+                                           key + 1);
     }
+  };
+  pipelined_sweep<2>(ba, bb, 0, tiles, issue, release, delta_tile);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1)
+      delta[j] += __shfl_xor_sync(0xffffffffu, delta[j], off);
   }
-  quad_reduce(z, false);
+
+  // sweep 2: dS = P o (dP - Delta) as bf16 hi + lo, dQ += dS K; dS of tile
+  // t + 1 is formed while nothing is in flight
+  float acc[32];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) rz[j] = bf16r(1.f / z[j]);
-  // sweep 3: Delta = Sum P dP, dP 0 where dropped, / keep where kept
-  for (int t = 0; t < tiles; ++t) {
-    const int u = 2 * tiles + t;
-    products(u, true);
-    release(u);
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  uint32_t dhi[16], dlo[16];
+  auto ds_of = [&](int t) {
+    uint32_t p2[16];
+    probs(ba.s, p2, t);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int j = (i >> 1) & 1;
-      delta[j] += native_prob(x[i], m[j], rz[j]) *
-                  kept_dp<kDrop>(dp[i], a, b, h, j ? r.row1 : r.row0,
-                                 t * 64 + 8 * (i / 4) + r.cq + (i & 1));
+    for (int q = 0; q < 16; ++q) {
+      const int j = q & 1, row = j ? r.row1 : r.row0;
+      const int key = t * 64 + 8 * (q / 2) + r.cq;
+      const float2 p = unpack_bf16(p2[q]);
+      const float d0 = kept_dp<kDrop>(ba.dp[2 * q], a, b, h, row, key);
+      const float d1 = kept_dp<kDrop>(ba.dp[2 * q + 1], a, b, h, row,
+                                      key + 1);
+      split(p.x * (d0 - delta[j]), p.y * (d1 - delta[j]), dhi[q], dlo[q]);
     }
-  }
-  quad_reduce(delta, false);
-  // sweep 4: dS = P o (dP - Delta) as bf16 hi + lo, dQ += dS K
-  for (int t = 0; t < tiles; ++t) {
-    const int u = 3 * tiles + t, s = u % kStages;
-    products(u, true);
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int j = (i >> 1) & 1;
-      const int row = j ? r.row1 : r.row0, key = t * 64 + 8 * (i / 4) + r.cq;
-      const float d0 = kept_dp<kDrop>(dp[i], a, b, h, row, key);
-      const float d1 = kept_dp<kDrop>(dp[i + 1], a, b, h, row, key + 1);
-      split(native_prob(x[i], m[j], rz[j]) * (d0 - delta[j]),
-            native_prob(x[i + 1], m[j], rz[j]) * (d1 - delta[j]), dhi[i / 2],
-            dlo[i / 2]);
-    }
+  };
+  const int u0 = tiles;
+  issue(ba, u0, true);
+  wgmma_wait();
+  fence_regs(ba.s);
+  fence_regs(ba.dp);
+  ds_of(0);
+  for (int t = 0; t + 1 < tiles; ++t) {
+    const int s = (u0 + t) % kStages;
+    const int u1 = u0 + t + 1, s1 = u1 % kStages;
+    mbar_wait(full0 + 8 * s1, (u1 / kStages) & 1);
+    fence_regs(ba.s);
+    fence_regs(ba.dp);
     fence_regs(acc);
     fence_regs(dhi);
     fence_regs(dlo);
+    tile_descs<2>(dk, sK + s1 * kTile);
+    tile_descs<2>(dv, sV + s1 * kTile);
     uint64_t dkm[4];
     tile_descs<128>(dkm, sK + s * kTile);
     wgmma_fence();
+    issue_s(ba.s, dq, dk);
+    issue_s(ba.dp, dg, dv);
     issue_pv(acc, dhi, dlo, dkm);
     wgmma_wait();
+    fence_regs(ba.s);
+    fence_regs(ba.dp);
     fence_regs(acc);
-    release(u);
+    release(u0 + t);
+    ds_of(t + 1);
   }
+  fence_regs(acc);
+  fence_regs(dhi);
+  fence_regs(dlo);
+  {
+    uint64_t dkm[4];
+    tile_descs<128>(dkm, sK + (u0 + tiles - 1) % kStages * kTile);
+    wgmma_fence();
+    issue_pv(acc, dhi, dlo, dkm);
+    wgmma_wait();
+  }
+  fence_regs(acc);
+  release(u0 + tiles - 1);
 
-  // epilogue: dQ * scale in bf16; the rows' (max, bf16(1 / z), Delta)
+  // epilogue: dQ * scale in bf16; the rows' Delta
   __nv_bfloat16* out = a.dq + ((size_t)blockIdx.y * a.Lq) * a.D;
   const bool pairs = (a.D % 2) == 0;
 #pragma unroll
@@ -618,21 +669,17 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   if (lane % 4 == 0) {
-    float* st = a.stats + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 192;
+    float* dl = a.delta + tile_id * 64;
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int i = (k ? r.row1 : r.row0) - q0;
-      st[i] = m[k];
-      st[64 + i] = rz[k];
-      st[128 + i] = delta[k];
-    }
+    for (int k = 0; k < 2; ++k) dl[(k ? r.row1 : r.row0) - q0] = delta[k];
   }
 }
 
 // Kernel 2: dK and dV, one block per (64 keys, batch x head). A thread
 // holds keys key0 and key0 + 8 (the m64 fragment's rows) and, per q tile,
 // the rows q0 + 8 j + cq (+ 1) (its columns). kNative takes P^T in the
-// input-dtype softmax from K8n's stats.
+// input-dtype softmax from the forward's statistics and K8n's Delta, in
+// packed pairs, and drop(P)^T, bf16 already, as one bf16 term.
 template <bool kDrop, bool kNative>
 __global__ void __launch_bounds__(kThreads, 2)
     attention_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -656,7 +703,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int h = blockIdx.y - b * a.H;
   const int k0 = blockIdx.x * 64;
   const int qtiles = (a.Lq + 63) / 64;
-  const float* stats = a.stats + (size_t)blockIdx.y * qtiles * 192;
+  const float* stats =
+      a.stats + (size_t)blockIdx.y * qtiles * (kNative ? 128 : 192);
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
   const int lane = threadIdx.x % 32;
 
@@ -684,8 +732,18 @@ __global__ void __launch_bounds__(kThreads, 2)
                  h, b);
         tma_rows(sG + s * kTile, &tg, full0 + 8 * s, a.g_head_inner, t * 64,
                  h, b);
-        bulk_load(sSt + s * kStatBytes, stats + t * 192, kStatBytes,
-                  full0 + 8 * s);
+        if constexpr (kNative) {
+          // the forward's (max, bf16(1 / z)), then Delta: one stage holds
+          // the three in K8's order
+          bulk_load(sSt + s * kStatBytes, stats + t * 128, 2 * 64 * 4,
+                    full0 + 8 * s);
+          bulk_load(sSt + s * kStatBytes + 2 * 64 * 4,
+                    a.delta + ((size_t)blockIdx.y * qtiles + t) * 64, 64 * 4,
+                    full0 + 8 * s);
+        } else {
+          bulk_load(sSt + s * kStatBytes, stats + t * 192, kStatBytes,
+                    full0 + 8 * s);
+        }
       }
     }
     return;
@@ -697,8 +755,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       a.kv_mask == nullptr ? nullptr : a.kv_mask + (size_t)b * a.Lkv;
   const bool kept0 = mask == nullptr || mask[min(key0, a.Lkv - 1)] != 0;
   const bool kept1 = mask == nullptr || mask[min(key1, a.Lkv - 1)] != 0;
-  const float scale_b = bf16r(a.scale), keep_b = bf16r(a.keep);
-  const float masked_b = bf16r(kMasked);
+  const float keep_b = bf16r(a.keep);
+  const uint32_t scale2 = bcast2(bf16r(a.scale));
+  const float inv_lo = __fdiv_rd(1.f, keep_b), inv_hi = __fdiv_ru(1.f, keep_b);
   uint64_t dk_[4], dv_[4], dq_[4], dg_[4];
   float st[32], dpt[32], dk[32], dv[32];
 #pragma unroll
@@ -732,34 +791,88 @@ __global__ void __launch_bounds__(kThreads, 2)
                        q0 + 64 <= a.Lq &&
                        (!a.causal || k0 + 64 <= a.prefix_len ||
                         k0 + 63 <= q0);
+    if constexpr (kNative) {
+      // pair q = i / 2: key (i & 2 ? key1 : key0), rows q0 + c, c + 1
+      uint32_t x2[16];
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int key = (i & 2) ? key1 : key0;
-      const bool kept_key = (i & 2) ? kept1 : kept0;
-      float pu[2], ds[2];
+      for (int i = 0; i < 32; i += 2) {
+        const int key = (i & 2) ? key1 : key0;
+        const bool kept_key = (i & 2) ? kept1 : kept0;
+        const int c = 8 * (i / 4) + cq;
+        uint32_t y2 = bmul2(pack_bf16(st[i], st[i + 1]), scale2);
+        if (!whole) {
+          uint32_t out = 0;
 #pragma unroll
-      for (int c2 = 0; c2 < 2; ++c2) {
-        const int c = 8 * (i / 4) + cq + c2, row = q0 + c;
-        const float y = kNative ? bf16r(bf16r(st[i + c2]) * scale_b)
-                                : st[i + c2] * a.scale_log2;
-        const float x =
-            whole ? y
-                  : (row < a.Lq ? masked(y, row, key, kept_key, a,
-                                         kNative ? masked_b : kMasked)
-                                : -INFINITY);
-        const float p = kNative ? native_prob(x, sm[c], sm[64 + c])
-                                : ex2(x - sm[c]) * sm[64 + c];
-        float d = dpt[i + c2];
-        pu[c2] = p;
-        if (kDrop) {
-          const bool drop = dropped(a, b, h, row, key);
-          pu[c2] = drop ? 0.f : kNative ? bf16r(p / keep_b) : p * a.inv_keep;
-          d = drop ? 0.f : d * a.inv_keep;
+          for (int c2 = 0; c2 < 2; ++c2) {
+            const int row = q0 + c + c2;
+            const bool ok = kept_key && (!a.causal || key < a.prefix_len ||
+                                         key <= row);
+            const uint32_t h2 = (y2 >> (16 * c2)) & 0xFFFFu;
+            out |= (row < a.Lq && key < a.Lkv ? (ok ? h2 : kMaskedBf16)
+                                              : kNegInfBf16)
+                   << (16 * c2);
+          }
+          y2 = out;
         }
-        ds[c2] = p * (d - sm[128 + c]);
+        // the two rows' max, bf16 values held in floats
+        x2[i / 2] = bsub2(y2, __byte_perm(__float_as_uint(sm[c]),
+                                          __float_as_uint(sm[c + 1]),
+                                          0x7632));
       }
-      split(pu[0], pu[1], phi[i / 2], plo[i / 2]);
-      split(ds[0], ds[1], dhi[i / 2], dlo[i / 2]);
+      uint32_t p2[16];
+      native_exp(x2, p2);
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int c = 8 * (i / 4) + cq;
+        p2[i / 2] = bmul2(p2[i / 2],
+                          __byte_perm(__float_as_uint(sm[64 + c]),
+                                      __float_as_uint(sm[65 + c]), 0x7632));
+        phi[i / 2] = p2[i / 2];
+      }
+      if (kDrop) native_div(phi, inv_lo, inv_hi, keep_b);
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int key = (i & 2) ? key1 : key0;
+        const int c = 8 * (i / 4) + cq;
+        const float2 p = unpack_bf16(p2[i / 2]);
+        float d0 = dpt[i], d1 = dpt[i + 1];
+        if (kDrop) {
+          const bool drop0 = dropped(a, b, h, q0 + c, key);
+          const bool drop1 = dropped(a, b, h, q0 + c + 1, key);
+          phi[i / 2] &= (drop0 ? 0u : 0xFFFFu) | (drop1 ? 0u : 0xFFFF0000u);
+          d0 = drop0 ? 0.f : d0 * a.inv_keep;
+          d1 = drop1 ? 0.f : d1 * a.inv_keep;
+        }
+        split(p.x * (d0 - sm[128 + c]), p.y * (d1 - sm[129 + c]), dhi[i / 2],
+              dlo[i / 2]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int key = (i & 2) ? key1 : key0;
+        const bool kept_key = (i & 2) ? kept1 : kept0;
+        float pu[2], ds[2];
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) {
+          const int c = 8 * (i / 4) + cq + c2, row = q0 + c;
+          const float y = st[i + c2] * a.scale_log2;
+          const float x =
+              whole ? y
+                    : (row < a.Lq ? masked(y, row, key, kept_key, a)
+                                  : -INFINITY);
+          const float p = ex2(x - sm[c]) * sm[64 + c];
+          float d = dpt[i + c2];
+          pu[c2] = p;
+          if (kDrop) {
+            const bool drop = dropped(a, b, h, row, key);
+            pu[c2] = drop ? 0.f : p * a.inv_keep;
+            d = drop ? 0.f : d * a.inv_keep;
+          }
+          ds[c2] = p * (d - sm[128 + c]);
+        }
+        split(pu[0], pu[1], phi[i / 2], plo[i / 2]);
+        split(ds[0], ds[1], dhi[i / 2], dlo[i / 2]);
+      }
     }
 
     fence_regs(dk);
@@ -771,7 +884,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     tile_descs<128>(dg_, sG + s * kTile);
     tile_descs<128>(dq_, sQ + s * kTile);
     wgmma_fence();
-    issue_pv(dv, phi, plo, dg_);  // dV += drop(P)^T dO
+    if constexpr (kNative) {
+      issue_pv1(dv, phi, dg_);  // dV += drop(P)^T dO
+    } else {
+      issue_pv(dv, phi, plo, dg_);  // dV += drop(P)^T dO
+    }
     issue_pv(dk, dhi, dlo, dq_);  // dK += dS^T Q
     wgmma_wait();
     fence_regs(dk);
@@ -831,11 +948,14 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
   const int dq_smem = (2 + 2 * kStages) * kTile + bars + 1024;
   const int dkv_smem =
       (2 + 2 * kStages) * kTile + kStages * kStatBytes + bars + 1024;
+  // K8n's dQ kernel adds the key mask's bits, 8 bytes a key tile
   const int err = launch_one(kNative
                                  ? attention_bwd_dq_native_sm90_kernel<kDrop>
                                  : attention_bwd_dq_sm90_kernel<kDrop>,
-                             dq_smem, dim3((ka.Lq + 63) / 64, B * ka.H), tq,
-                             tk, tv, tg, ka, stream);
+                             dq_smem + (kNative ? 8 * ((ka.Lkv + 63) / 64)
+                                                : 0),
+                             dim3((ka.Lq + 63) / 64, B * ka.H), tq, tk, tv,
+                             tg, ka, stream);
   if (err != 0) return err;
   return launch_one(attention_bwd_dkv_sm90_kernel<kDrop, kNative>, dkv_smem,
                     dim3((ka.Lkv + 63) / 64, B * ka.H), tq, tk, tv, tg, ka,
@@ -867,7 +987,8 @@ int attention_bwd_sm90(const Sm90AttentionBwd& a, cudaStream_t stream) {
              0,
              0,
              0,
-             a.dropout ? a.keep : 1.f};
+             a.dropout ? a.keep : 1.f,
+             a.delta};
   if (!make_map(&tq, &ka.q_head_inner, a.q, a.D, a.Lq, a.H, a.B, a.qb, a.qh,
                 a.ql) ||
       !make_map(&tk, &ka.k_head_inner, a.k, a.D, a.Lkv, a.H, a.B, a.kb, a.kh,

@@ -57,13 +57,38 @@
 // bf16(e * bf16(1 / z)); a kept p becomes bf16(p / bf16(1 - rate)) (0.8984375
 // at rate 0.1); the output Sum p v in float32, rounded to bf16. Every e is
 // rounded at the row's FINAL max, which an online softmax cannot rescale to,
-// so attention_native_sm90_kernel takes three sweeps over the keys: S for
-// the row max, S again for z, S again for P and O += P V (one bf16 term of
-// P, exact, where K4 needs two). The bound is the function's own work, one
-// Q K^T and one P V, as K4's; the two extra score sweeps cost 2/3 of K4's
-// products again and keep no exponential of theirs. expf (not ex2.approx)
-// takes each exponential, so that its bf16 rounding matches the plain
-// version's but where the float32 results straddle a bf16 boundary.
+// so attention_native_sm90_kernel takes three sweeps over the keys. The
+// bound is the function's own work, one Q K^T and one P V, as K4's; the
+// arithmetic a score, not the products, is what costs (the first design
+// took six bf16 roundings and two accurate expf a score). The design:
+// - Sweep 1, the row max, is the Q K^T products and one fmaxf a score.
+//   x = bf16(bf16(s) * bf16(scale)) does not decrease as the float32 score
+//   s grows when bf16(scale) > 0 (each step is a rounding or a positive
+//   multiply), so the max of the x is that map of the raw max of the
+//   allowed scores; a disallowed key below Lkv raises it to bf16(-1e30) at
+//   least (a flag a row). A scale that rounds to <= 0 takes the scores
+//   themselves (native_scores).
+// - Sweeps 2 and 3 work on bf16 pairs: one cvt.rn.bf16x2.f32 a pair of
+//   scores, then mul.rn / sub.rn.bf16x2 for x and x - max, and for e *
+//   bf16(1 / z): each one rounding of the exact result, equal to the
+//   per-score bf16r(float32 op) (the argument is in
+//   flash_attention_sm90.cuh).
+// - The exponential and the dropout division are exact and fast
+//   (native_exp, native_div): ex2.approx and a multiply, bracketed, with
+//   expf or a division only where a bf16 rounding midpoint lies inside the
+//   bracket, one branch a tile. native_probe_sm90 checks both against PR
+//   11's formulas on every input of their bf16 domains.
+// - A key mask is read once a block into shared-memory bits, one 64-bit
+//   word a tile (the first design read a mask byte a key a sweep).
+// - In sweeps 1 and 2 both operands of S come from shared memory, so S of
+//   tile t + 1 is in flight while tile t's arithmetic runs (two S
+//   accumulators, wgmma.wait_group 1: pipelined_sweep). Sweep 3 waits for
+//   S of t + 1 and P V of t together before writing P (C7513, as K4).
+// - x lives in 16 bf16x2 registers, not 32 floats: three blocks an SM, as
+//   K4 runs, each with a four-stage ring (K4: three).
+// - With the statistics pointer set (autograd will need them), the rows'
+//   (max, bf16(1 / z)) go to float32 [B H ceil(Lq / 64)][2][64] for K8n;
+//   the stats-only instance stops there (a standalone backward).
 
 #include "common.cuh"
 #include "flash_attention_sm90.cuh"
@@ -75,6 +100,7 @@ constexpr int kRows = 64;    // query rows per consumer warpgroup
 constexpr int kKeys = 64;    // keys per K/V tile
 constexpr int kDim = 64;     // head dim of a tile; D < 64 is zero-padded
 constexpr int kStages = 3;   // K/V ring depth
+constexpr int kNStages = 4;  // K4n's ring: three blocks an SM still fit
 constexpr int kThreads = 160;  // one consumer warpgroup + one producer warp
 constexpr uint32_t kTile = kRows * kDim * 2;  // 8 KB: 64 rows of 128 B
 constexpr float kLog2e = 1.4426950408889634f;
@@ -91,6 +117,7 @@ struct KernelArgs {
   float inv_keep;    // 1 / (1 - rate), or 1
   int q_head_inner, k_head_inner, v_head_inner;  // tensor-map dim order
   float scale, keep;  // as given: K4n rounds both to bf16
+  float* stats;       // K4n: the rows' (max, bf16(1 / z)), or null
 };
 
 // the score x of (row, key) in the log2 domain, as _block_probs masks it;
@@ -108,6 +135,12 @@ __device__ __forceinline__ float masked(float x, int row, int key, bool kept,
 struct Rows {
   int row0, row1, row_min, cq, b, h;
   const uint8_t* mask;  // this batch row's [Lkv] key mask, or null
+};
+
+// K4n's place of a thread: K4's, and the key mask's bits in shared memory
+// (load_kept_bits) or null
+struct NRows : Rows {
+  const uint32_t* bits;
 };
 
 // The online softmax of one score tile (keys k0 + [0, 64)): scores to the
@@ -342,24 +375,29 @@ __global__ void __launch_bounds__(kThreads, 3)
 }
 
 // K4n: one consumer warpgroup (64 query rows) + one producer warp, three
-// sweeps over the keys (see the note at the top). The producer streams K
-// alone for the first two sweeps and K with V for the third through the
-// one ring. Two blocks an SM: the scores in the input dtype sit beside
-// the raw ones, which three blocks' register share would spill.
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
+// blocks an SM, three sweeps over the keys (see the note at the top). The
+// producer streams K alone for the first two sweeps and K with V for the
+// third through the one ring. kStatsOnly stops after the second sweep
+// with the rows' (max, bf16(1 / z)) written: the statistics K8n takes
+// where no forward of autograd left them.
+template <bool kDrop, bool kStatsOnly>
+__global__ void __launch_bounds__(kThreads, 3)
     attention_native_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  const KernelArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023u) & ~1023u;
   const uint32_t sQ = base;
   const uint32_t sK = sQ + kTile;
-  const uint32_t sV = sK + kStages * kTile;
-  const uint32_t q_full = sV + kStages * kTile;
+  const uint32_t sV = sK + kNStages * kTile;
+  const uint32_t q_full = sV + kNStages * kTile;
   const uint32_t full0 = q_full + 8;
-  const uint32_t empty0 = full0 + 8 * kStages;
+  const uint32_t empty0 = full0 + 8 * kNStages;
+  // the key mask's bits, 2 words a tile
+  uint32_t* bits = reinterpret_cast<uint32_t*>(
+      smem_raw + (empty0 + 8 * kNStages - raw_base));
 
   const int b = blockIdx.y / a.H;
   const int h = blockIdx.y - b * a.H;
@@ -370,7 +408,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kNStages; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 4);
     }
@@ -383,10 +421,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (lane == 0) {
       mbar_expect_tx(q_full, kTile);
       tma_rows(sQ, &tq, q_full, a.q_head_inner, q0, h, b);
-      for (int u = 0; u < 3 * tiles; ++u) {
-        const int s = u % kStages, t = u % tiles;
+      for (int u = 0; u < (kStatsOnly ? 2 : 3) * tiles; ++u) {
+        const int s = u % kNStages, t = u % tiles;
         const bool with_v = u >= 2 * tiles;
-        mbar_wait(empty0 + 8 * s, ((u / kStages) & 1) ^ 1);
+        mbar_wait(empty0 + 8 * s, ((u / kNStages) & 1) ^ 1);
         mbar_expect_tx(full0 + 8 * s, with_v ? 2 * kTile : kTile);
         tma_rows(sK + s * kTile, &tk, full0 + 8 * s, a.k_head_inner,
                  t * kKeys, h, b);
@@ -398,7 +436,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     return;
   }
   // ---- consumer warpgroup: rows q0 + [0, 64) ----
-  Rows r;
+  NRows r;
   r.row_min = q0;
   r.row0 = q0 + 16 * warp + lane / 4;
   r.row1 = r.row0 + 8;
@@ -406,55 +444,103 @@ __global__ void __launch_bounds__(kThreads, 2)
   r.b = b;
   r.h = h;
   r.mask = a.kv_mask == nullptr ? nullptr : a.kv_mask + (size_t)b * a.Lkv;
+  r.bits = nullptr;
+  if (r.mask != nullptr) {
+    load_kept_bits(bits, r.mask, a.Lkv, warp, lane);
+    warpgroup_sync();
+    r.bits = bits;
+  }
   const float scale_b = bf16r(a.scale), keep_b = bf16r(a.keep);
+  const uint32_t scale2 = bcast2(scale_b);
   uint64_t dq[4], dk[4], dv[4];
-  float o[32], sc[32], x[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f}, rz[2];
-  uint32_t p[16];
+  float sa[32], sb[32];
   mbar_wait(q_full, 0);
+  tile_descs<2>(dq, sQ);
 
-  // S of ring slot u (key tile u % tiles), waited; the slot stays full
-  auto scores_of = [&](int u) {
-    const int s = u % kStages;
-    mbar_wait(full0 + 8 * s, (u / kStages) & 1);
-    fence_regs(sc);
-    tile_descs<2>(dq, sQ);
-    tile_descs<2>(dk, sK + s * kTile);
+  // S of ring slot u into acc, issued and committed; Q Q^T where !real
+  auto issue = [&](float (&acc)[32], int u, bool real) {
+    const int s = u % kNStages;
+    if (real) mbar_wait(full0 + 8 * s, (u / kNStages) & 1);
+    tile_descs<2>(dk, real ? sK + s * kTile : sQ);
+    fence_regs(acc);
     wgmma_fence();
-    issue_s(sc, dq, dk);
-    wgmma_wait();
-    fence_regs(sc);
-    native_scores(sc, x, (u % tiles) * kKeys, r, a, scale_b);
+    issue_s(acc, dq, dk);
+  };
+  auto release = [&](int u) {
+    if (lane == 0) mbar_arrive(empty0 + 8 * (u % kNStages));
   };
 
-  // sweep 1: the bf16 row max (exact in any order)
-  for (int t = 0; t < tiles; ++t) {
-    scores_of(t);
-    if (lane == 0) mbar_arrive(empty0 + 8 * (t % kStages));
+  // sweep 1: the row max. bf16(bf16(s) * scale_b) does not decrease as s
+  // grows (scale_b > 0), so the max of the scores is that of the raw max
+  // of the allowed keys, or bf16(-1e30) where a disallowed key below Lkv
+  // scores more: the products and one fmaxf a score. A scale_b <= 0 takes
+  // the scores themselves.
+  float raw[2] = {-INFINITY, -INFINITY};
+  int flag[2] = {0, 0};
+  const bool monotone = scale_b > 0.f;
+  auto max_tile = [&](float (&s)[32], int t) {
+    fence_regs(s);
+    const int k0 = t * kKeys;
+    if (!monotone) {
+      float x[32];
+      native_scores(s, x, k0, r, a, scale_b);
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], x[i]);
-  }
+      for (int i = 0; i < 32; ++i)
+        raw[(i >> 1) & 1] = fmaxf(raw[(i >> 1) & 1], x[i]);
+    } else if (native_whole(k0, r, a)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        raw[(i >> 1) & 1] = fmaxf(raw[(i >> 1) & 1], s[i]);
+    } else {
+      // the allowed scores' max; flag where a disallowed key below Lkv is
+      uint64_t ok[2];
+      tile_allowed(r, a, k0, ok);
+      const int n = min(a.Lkv - k0 - r.cq, 64);  // the thread's keys < Lkv
+      const uint64_t in = n <= 0 ? 0ull : ~0ull >> (64 - n);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        flag[j] |= ((in & ~ok[j]) & 0x0303030303030303ull) != 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int j = (i >> 1) & 1;
+        raw[j] = fmaxf(raw[j], (ok[j] >> (8 * (i / 4) + (i & 1))) & 1
+                                   ? s[i]
+                                   : -INFINITY);
+      }
+    }
+  };
+  pipelined_sweep<1>(sa, sb, 0, tiles, issue, release, max_tile);
+  float m[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1)
-      m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], off));
-  }
-
-  // sweep 2: z = Sum float32(e), e = bf16(exp(bf16(s - max)))
-  for (int t = 0; t < tiles; ++t) {
-    const int u = tiles + t;
-    scores_of(u);
-    if (lane == 0) mbar_arrive(empty0 + 8 * (u % kStages));
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int j = (i >> 1) & 1;
-      z[j] += bf16r(expf(bf16r(x[i] - m[j])));
+    for (int off = 1; off <= 2; off <<= 1) {
+      raw[j] = fmaxf(raw[j], __shfl_xor_sync(0xffffffffu, raw[j], off));
+      flag[j] |= __shfl_xor_sync(0xffffffffu, flag[j], off);
     }
+    m[j] = monotone ? fmaxf(bf16r(bf16r(raw[j]) * scale_b),
+                            flag[j] ? bf16r(kMasked) : -INFINITY)
+                    : raw[j];
   }
+  const uint32_t m2[2] = {bcast2(m[0]), bcast2(m[1])};
+
+  // sweep 2: z = Sum float32(e), e = bf16(exp(bf16(x - max))), in pairs
+  float z[2] = {0.f, 0.f};
+  auto sum_tile = [&](float (&s)[32], int t) {
+    fence_regs(s);
+    uint32_t x2[16], e2[16];
+    native_pairs(s, x2, t * kKeys, r, a, scale2);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) x2[q] = bsub2(x2[q], m2[q & 1]);
+    native_exp(x2, e2);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float2 e = unpack_bf16(e2[q]);
+      z[q & 1] += e.x + e.y;
+    }
+  };
+  pipelined_sweep<1>(sa, sb, tiles, tiles, issue, release, sum_tile);
+  float rz[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -462,38 +548,79 @@ __global__ void __launch_bounds__(kThreads, 2)
       z[j] += __shfl_xor_sync(0xffffffffu, z[j], off);
     rz[j] = bf16r(1.f / z[j]);
   }
+  if (a.stats != nullptr && lane % 4 == 0) {
+    // the rows' (max, bf16(1 / z)), 64 rows a tile: K8n's statistics
+    float* st = a.stats + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 128;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = (k ? r.row1 : r.row0) - q0;
+      st[i] = m[k];
+      st[64 + i] = rz[k];
+    }
+  }
+  if (kStatsOnly) return;
 
   // sweep 3: p = bf16(e * bf16(1 / z)), dropped or divided by bf16(keep),
-  // then O += P V; the slot is released after the product
-  for (int t = 0; t < tiles; ++t) {
-    const int u = 2 * tiles + t, s = u % kStages;
-    scores_of(u);
+  // then O += P V. S of tile t + 1 and P V of tile t go to the tensor cores
+  // together; P is written only once both are done (C7513, see K4).
+  const uint32_t rz2[2] = {bcast2(rz[0]), bcast2(rz[1])};
+  const float inv_lo = __fdiv_rd(1.f, keep_b), inv_hi = __fdiv_ru(1.f, keep_b);
+  float o[32];
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int j = (i >> 1) & 1;
-      float pp[2];
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  uint32_t p[16];
+  auto probs = [&](int t) {
+    uint32_t x2[16];
+    native_pairs(sa, x2, t * kKeys, r, a, scale2);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        pp[c] = native_prob(x[i + c], m[j], rz[j]);
-        if (kDrop) {
-          const int row = j ? r.row1 : r.row0;
-          const int key = t * kKeys + 8 * (i / 4) + r.cq + c;
-          pp[c] = dropout_bits(a.seed, b, h, row, key) < a.thresh
-                      ? 0.f
-                      : bf16r(pp[c] / keep_b);
-        }
+    for (int q = 0; q < 16; ++q) x2[q] = bsub2(x2[q], m2[q & 1]);
+    native_exp(x2, p);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) p[q] = bmul2(p[q], rz2[q & 1]);
+    if (kDrop) {
+      native_div(p, inv_lo, inv_hi, keep_b);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int row = (q & 1) ? r.row1 : r.row0;
+        const int key = t * kKeys + 8 * (q / 2) + r.cq;
+        p[q] &= (dropout_bits(a.seed, b, h, row, key) < a.thresh ? 0u
+                                                                  : 0xFFFFu) |
+                (dropout_bits(a.seed, b, h, row, key + 1) < a.thresh
+                     ? 0u
+                     : 0xFFFF0000u);
       }
-      p[i / 2] = pack_bf16(pp[0], pp[1]);
     }
+  };
+  const int u0 = 2 * tiles;
+  issue(sa, u0, true);
+  wgmma_wait();
+  fence_regs(sa);
+  probs(0);
+  for (int t = 0; t + 1 < tiles; ++t) {
+    const int s = (u0 + t) % kNStages, s1 = (u0 + t + 1) % kNStages;
+    mbar_wait(full0 + 8 * s1, ((u0 + t + 1) / kNStages) & 1);
+    fence_regs(sa);
     fence_regs(o);
     fence_regs(p);
+    tile_descs<2>(dk, sK + s1 * kTile);
     tile_descs<128>(dv, sV + s * kTile);
     wgmma_fence();
+    issue_s(sa, dq, dk);
     issue_pv1(o, p, dv);
     wgmma_wait();
+    fence_regs(sa);
     fence_regs(o);
-    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    release(u0 + t);
+    probs(t + 1);
   }
+  fence_regs(o);
+  fence_regs(p);
+  tile_descs<128>(dv, sV + (u0 + tiles - 1) % kNStages * kTile);
+  wgmma_fence();
+  issue_pv1(o, p, dv);
+  wgmma_wait();
+  fence_regs(o);
+  release(u0 + tiles - 1);
 
   // epilogue: O rounded to bf16 (P is normalised already)
   __nv_bfloat16* op = a.out + b * a.ob + h * a.oh;
@@ -519,22 +646,74 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <bool kDrop, bool kNative>
+template <bool kDrop, bool kNative, bool kStatsOnly = false>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const KernelArgs& ka, int B,
            cudaStream_t stream) {
-  const int smem = (1 + 2 * kStages) * kTile + 8 * (1 + 2 * kStages) + 1024;
-  auto kernel = kNative ? attention_native_sm90_kernel<kDrop>
+  // K4n: its deeper ring and the key mask's bits, 8 bytes a key tile
+  const int stages = kNative ? kNStages : kStages;
+  const int smem = (1 + 2 * stages) * kTile + 8 * (1 + 2 * stages) + 1024 +
+                   (kNative ? 8 * ((ka.Lkv + kKeys - 1) / kKeys) : 0);
+  auto kernel = kNative ? attention_native_sm90_kernel<kDrop, kStatsOnly>
                         : attention_sm90_kernel<kDrop>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return (int)attr;
+  // the largest shared memory this kernel was allowed so far
+  static int allowed = 0;
+  if (smem > allowed) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    allowed = smem;
+  }
   const dim3 grid((ka.Lq + kRows - 1) / kRows, B * ka.H);
   kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, ka);
   return (int)cudaGetLastError();
 }
 
+// The probe: one thread per bf16 bit pattern, each value in both halves
+// of a pair (the fallback is taken for a pair, so a value's result does not
+// depend on its neighbour's).
+__global__ void native_probe_kernel(int* out, float keep) {
+  const uint32_t bits = blockIdx.x * blockDim.x + threadIdx.x;
+  if (bits > 0xFFFFu) return;
+  const float v = __uint_as_float(bits << 16);
+  const uint32_t v2 = bits | (bits << 16);
+  if (bits == 0 || (bits >= 0x8000u && bits <= kNegInfBf16)) {
+    // d <= 0 or -inf
+    int slow = 0;
+    const uint32_t d2[1] = {v2};
+    uint32_t e2[1];
+    native_exp(d2, e2, &slow);
+    const uint32_t got = e2[0], want = pack_bf16(expf(v), expf(v));
+    atomicAdd(out, 1);
+    if (got != want) atomicAdd(out + 1, 1);
+    if (slow) atomicAdd(out + 2, 1);
+    const float y = ex2(fmaf(v, 1.4426950408889634f, kExpShift));
+    const float e = expf(v);
+    if (e >= 0x1p-126f) {  // a normal expf(d): the bracket's argument
+      if (!(y * kExpLo <= e && e <= y * kExpHi)) atomicAdd(out + 3, 1);
+      atomicMax(out + 4, (int)__float_as_uint(
+                             fabsf(y * 0x1p-10f / e - 1.f)));
+    }
+  }
+  if (bits <= 0x3F80u) {  // p in [0, 1]
+    const float keep_b = bf16r(keep);
+    int slow = 0;
+    uint32_t p2[1] = {v2};
+    native_div(p2, __fdiv_rd(1.f, keep_b), __fdiv_ru(1.f, keep_b), keep_b,
+               &slow);
+    const float q = bf16r(v / keep_b);
+    atomicAdd(out + 5, 1);
+    if (p2[0] != pack_bf16(q, q)) atomicAdd(out + 6, 1);
+    if (slow) atomicAdd(out + 7, 1);
+  }
+}
+
 }  // namespace
+
+int native_probe_sm90(int* out, float keep, cudaStream_t stream) {
+  native_probe_kernel<<<256, 256, 0, stream>>>(out, keep);
+  return (int)cudaGetLastError();
+}
 
 int attention_sm90(const Sm90Attention& a, cudaStream_t stream) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
@@ -542,7 +721,8 @@ int attention_sm90(const Sm90Attention& a, cudaStream_t stream) {
   KernelArgs ka{static_cast<__nv_bfloat16*>(a.out), a.kv_mask, a.H, a.Lq,
                 a.Lkv, a.D, a.ob, a.oh, a.ol, a.scale * kLog2e, a.causal,
                 a.prefix_len, a.seed, a.thresh,
-                a.dropout ? 1.f / a.keep : 1.f, 0, 0, 0, a.scale, a.keep};
+                a.dropout ? 1.f / a.keep : 1.f, 0, 0, 0, a.scale, a.keep,
+                a.stats};
   if (!make_map(&tq, &ka.q_head_inner, a.q, a.D, a.Lq, a.H, a.B, a.qb, a.qh,
                 a.ql) ||
       !make_map(&tk, &ka.k_head_inner, a.k, a.D, a.Lkv, a.H, a.B, a.kb, a.kh,
@@ -550,6 +730,8 @@ int attention_sm90(const Sm90Attention& a, cudaStream_t stream) {
       !make_map(&tv, &ka.v_head_inner, a.v, a.D, a.Lkv, a.H, a.B, a.vb, a.vh,
                 a.vl))
     return (int)cudaErrorInvalidValue;
+  if (a.stats_only)  // dropout leaves the statistics as they are
+    return launch<false, true, true>(tq, tk, tv, ka, a.B, stream);
   if (a.native)
     return a.dropout ? launch<true, true>(tq, tk, tv, ka, a.B, stream)
                      : launch<false, true>(tq, tk, tv, ka, a.B, stream);

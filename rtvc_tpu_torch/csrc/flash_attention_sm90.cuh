@@ -34,6 +34,10 @@ struct Sm90Attention {
   float keep;  // 1 - rate
   int dropout;
   int native;  // the input-dtype (bf16) softmax: K4n
+  // K4n: where not null, the rows' (max, bf16(1 / z)) as float32, per
+  // 64-row tile of each (batch, head) 64 maxima then 64 reciprocals
+  float* stats;
+  int stats_only;  // K4n's first two sweeps alone: stats, no out
 };
 
 // Launches the kernel on `stream`; returns a cudaError_t code (0 = launched).
@@ -61,9 +65,20 @@ struct Sm90AttentionBwd {
   float keep;
   int dropout;
   int native;  // the input-dtype (bf16) softmax: K8n
+  // K8n: stats holds the forward's (max, bf16(1 / z)) in K4n's layout, and
+  // delta a float32 scratch of B * H * ceil(Lq / 64) * 64 values
+  float* delta;
 };
 
 int attention_bwd_sm90(const Sm90AttentionBwd& a, cudaStream_t stream);
+
+// Runs native_exp and native_div (below) on every input of their bf16 domains,
+// beside the per-score bf16r(expf(d)) and bf16r(p / bf16(keep)); `out` (8 ints
+// on the card, zeroed) receives: exponential inputs, mismatches, pairs that
+// took expf, inputs whose normal expf(d) the bracket misses, the largest |y
+// 2^-kExpShift / expf(d) - 1| (float32 bits) over those; division inputs,
+// mismatches, pairs that divided.
+int native_probe_sm90(int* out, float keep, cudaStream_t stream);
 
 constexpr int kTmaRows = 64;  // rows of a TMA box (one head)
 constexpr int kTmaCols = 64;  // columns: D < 64 is zero-filled
@@ -150,6 +165,40 @@ __device__ __forceinline__ void wgmma_commit() {
 // wait until every product this warpgroup committed is done
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wait until at most the N newest committed product groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// One sweep of K4n or K8n over the key tiles of ring slots u0 + [0,
+// tiles), each tile's products (kGroups committed groups) into one of two
+// buffers in turn: those of tile t + 1 are in flight while tile t's
+// arithmetic (`tile(buf, t)`, which fences what it reads) runs. Every turn
+// issues (`issue(buf, u, real)`); where no tile is left it issues products
+// of resident tiles that nothing reads, as ptxas serialises the products
+// of a stage it cannot follow, so no product is issued under a condition.
+template <int kGroups, class Buf, class Issue, class Release, class Tile>
+__device__ __forceinline__ void pipelined_sweep(Buf& ba, Buf& bb, int u0,
+                                                int tiles, Issue& issue,
+                                                Release& release,
+                                                Tile& tile) {
+  issue(ba, u0, true);
+  for (int t = 0; t < tiles; t += 2) {
+    issue(bb, u0 + t + 1, t + 1 < tiles);
+    wgmma_wait_n<kGroups>();
+    tile(ba, t);
+    release(u0 + t);
+    issue(ba, u0 + t + 2, t + 2 < tiles);
+    wgmma_wait_n<kGroups>();
+    if (t + 1 < tiles) {
+      tile(bb, t + 1);
+      release(u0 + t + 1);
+    }
+  }
+  wgmma_wait();
 }
 
 // keeps the compiler from moving reads or writes of a wgmma's accumulator
@@ -273,6 +322,157 @@ __device__ __forceinline__ void issue_pv1(float (&o)[32],
   wgmma_commit();
 }
 
+// ---- the input-dtype softmax (K4n, K8n) in packed bf16 pairs ----
+// A pair holds two bf16 values, the first in the low half. mul.rn and
+// sub.rn of two bf16 operands round the exact product or difference once
+// to bf16, which is what the per-score bf16r(float32 op) gives: a product
+// of two bf16 values (8 significant bits each) is exact in float32; so is a
+// difference where the exponents differ by at most 15 (at most 24 bits,
+// a carry included). Where they differ by 16 or more, the smaller operand
+// is below 2^-6 of the larger's bf16 half-ulp (on either side of a power
+// of two), so the exact difference and its float32 rounding both lie
+// nearer the larger operand than any bf16 midpoint and both round to it
+// (tests/test_torch_native_redesign.py holds both on seeded pairs, exponent
+// gaps up to 80 included).
+
+__device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bsub2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// a bf16 value held in a float (its low 16 bits zero) in both halves
+__device__ __forceinline__ uint32_t bcast2(float x) {
+  const uint32_t u = __float_as_uint(x) >> 16;
+  return u | (u << 16);
+}
+
+// The exact fast exponential: bf16(expf(d)) for each bf16 d <= 0 (or -inf) of
+// N pairs, bit for bit, where the per-score form took bf16r(expf(d)).
+// ex2.approx of x = d log2(e) + kExpShift gives y ~ 2^kExpShift exp(d); the
+// shift keeps y a normal float32 down to d = -93, where bf16(exp(d)) becomes 0
+// (an unshifted ex2.approx.ftz would flush what expf keeps as a subnormal). y
+// times 2^-kExpShift (1 -+ eps) brackets expf(d) on every input of the domain
+// where expf(d) is a normal float32 (the largest relative error of y
+// 2^-kExpShift was 3.34e-6 on an H100; eps = 2^-18 = 3.8e-6); rounding is
+// monotone, so where both ends round to the same bf16 value, so does expf(d).
+// Where they do not (a bf16 rounding midpoint lies within eps of y: 3 of the
+// 32642 inputs), that pair takes expf itself. Below, where expf(d) is
+// subnormal, the bracket can miss by a float32 ulp; there, as everywhere, the
+// probe (native_probe_sm90) checks the bits of every input of the domain. The
+// N pairs are formed first and the fallback, one branch, after: a branch a
+// pair cut the unrolled pairs' instruction-level parallelism (K4n joint 718 ->
+// 467 us on an H100).
+constexpr float kExpShift = 10.f;
+constexpr uint32_t kMaskedBf16 = 0xF14Au;  // bf16(-1e30)
+constexpr uint32_t kNegInfBf16 = 0xFF80u;  // -inf
+constexpr float kExpLo = 0x1p-10f * (1.f - 0x1p-18f);  // 2^-10 (1 - eps)
+constexpr float kExpHi = 0x1p-10f * (1.f + 0x1p-18f);  // 2^-10 (1 + eps)
+
+__device__ __forceinline__ float lo_half(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float hi_half(uint32_t v) {
+  return __uint_as_float(v & 0xFFFF0000u);
+}
+
+// `slow`, where given, counts the pairs that took expf (the probe's count)
+template <int N>
+__device__ __forceinline__ void native_exp(const uint32_t (&d2)[N],
+                                           uint32_t (&e2)[N],
+                                           int* slow = nullptr) {
+  uint32_t redo = 0;
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    const float y0 = ex2(fmaf(lo_half(d2[q]), 1.4426950408889634f,
+                              kExpShift));
+    const float y1 = ex2(fmaf(hi_half(d2[q]), 1.4426950408889634f,
+                              kExpShift));
+    const uint32_t lo = pack_bf16(y0 * kExpLo, y1 * kExpLo);
+    const uint32_t hi = pack_bf16(y0 * kExpHi, y1 * kExpHi);
+    e2[q] = lo;
+    redo |= (lo != hi ? 1u : 0u) << q;
+  }
+  if (__builtin_expect(redo != 0, 0)) {
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      if (redo & (1u << q)) {
+        e2[q] = pack_bf16(expf(lo_half(d2[q])), expf(hi_half(d2[q])));
+        if (slow != nullptr) ++*slow;
+      }
+    }
+  }
+}
+
+// The exact fast dropout division: bf16(p / keep_b) for each bf16 p in [0, 1]
+// of N pairs, bit for bit, where the per-score form took bf16r(p / keep_b) (an
+// IEEE float32 division, then the rounding). inv_lo and inv_hi are 1 / keep_b
+// rounded down and up (__fdiv_rd, __fdiv_ru), so p inv_lo <= p / keep_b <= p
+// inv_hi exactly, and the float32 roundings keep that order: where both
+// products round to one bf16 value, so does the quotient; elsewhere (a
+// midpoint between them: none of the 16257 inputs at rate 0.1 on an H100) the
+// pair divides.
+template <int N>
+__device__ __forceinline__ void native_div(uint32_t (&p2)[N], float inv_lo,
+                                           float inv_hi, float keep_b,
+                                           int* slow = nullptr) {
+  uint32_t redo = 0;
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    const float p0 = lo_half(p2[q]), p1 = hi_half(p2[q]);
+    const uint32_t lo = pack_bf16(p0 * inv_lo, p1 * inv_lo);
+    redo |= (lo != pack_bf16(p0 * inv_hi, p1 * inv_hi) ? 1u : 0u) << q;
+    p2[q] = redo & (1u << q) ? p2[q] : lo;
+  }
+  if (__builtin_expect(redo != 0, 0)) {
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      if (redo & (1u << q)) {
+        p2[q] = pack_bf16(lo_half(p2[q]) / keep_b, hi_half(p2[q]) / keep_b);
+        if (slow != nullptr) ++*slow;
+      }
+    }
+  }
+}
+
+// The thread's kept keys of the tile at keys k0 + [0, 64) (k0 a multiple
+// of 64), from the batch row's key mask as bits in shared memory (`bits`,
+// bit k of word k / 32 for key k): bit 8 j + c of the result for key k0 +
+// 8 j + cq + c. All ones without a mask.
+__device__ __forceinline__ uint64_t kept_bits(const uint32_t* bits, int k0,
+                                              int cq) {
+  if (bits == nullptr) return ~0ull;
+  return *reinterpret_cast<const uint64_t*>(bits + k0 / 32) >> cq;
+}
+
+// The batch row's [Lkv] byte key mask into shared-memory bits (words of
+// 32 keys, two a 64-key tile; keys past Lkv 0), by the consumer
+// warpgroup's four warps; the caller syncs the warpgroup after.
+__device__ __forceinline__ void load_kept_bits(uint32_t* bits,
+                                               const uint8_t* mask, int lkv,
+                                               int warp, int lane) {
+  const int words = 2 * ((lkv + 63) / 64);
+#pragma unroll 4
+  for (int w = warp; w < words; w += 4) {
+    const int key = 32 * w + lane;
+    const uint32_t word = __ballot_sync(0xffffffffu,
+                                        key < lkv && mask[key] != 0);
+    if (lane == 0) bits[w] = word;
+  }
+}
+
+// sync the consumer warpgroup (128 threads) alone, on named barrier 1
+__device__ __forceinline__ void warpgroup_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
 // The input-dtype softmax's scores of one 64-key S tile (keys k0 + [0,
 // 64)) for the thread of the m64 fragment that `r` places (rows r.row0 and
 // r.row1, first columns r.cq of its 8-column groups, the warpgroup's first
@@ -309,11 +509,82 @@ __device__ __forceinline__ void native_scores(const float (&sc)[32],
   }
 }
 
-// The input-dtype softmax's probability of a score x (from native_scores)
-// in a row of max m and bf16 reciprocal normaliser rz: bf16(bf16(exp(
-// bf16(x - m))) * rz)
-__device__ __forceinline__ float native_prob(float x, float m, float rz) {
-  return bf16r(bf16r(expf(bf16r(x - m))) * rz);
+// whether every (row, key) of the warpgroup's 64-row tile at keys k0 +
+// [0, 64) is allowed (no key mask, no key past Lkv, none above the causal
+// edge), `r` and `a` as for native_scores
+template <class Rows, class Args>
+__device__ __forceinline__ bool native_whole(int k0, const Rows& r,
+                                             const Args& a) {
+  return r.mask == nullptr && k0 + 64 <= a.Lkv &&
+         (!a.causal || k0 + 64 <= a.prefix_len || k0 + 63 <= r.row_min);
+}
+
+// The allowed keys of a thread's two rows in the tile at keys k0 + [0, 64)
+// (k0 a multiple of 64) below Lkv: bit 8 j + c of ok[row] for key k0 + 8 j
+// + cq + c (the thread's keys; other bits are other threads'): the key
+// mask's bits (r.bits, from load_kept_bits, or null), the causal edge
+// (key < prefix or key <= row) and Lkv, each a word a tile, not a test a
+// score.
+template <class Rows, class Args>
+__device__ __forceinline__ void tile_allowed(const Rows& r, const Args& a,
+                                             int k0, uint64_t (&ok)[2]) {
+  uint64_t w = kept_bits(r.bits, k0, r.cq);
+  const int n = a.Lkv - k0 - r.cq;  // key k0 + cq + i < Lkv: i < n
+  if (n < 64) w &= n <= 0 ? 0ull : ~0ull >> (64 - n);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int lim = max(a.prefix_len - 1, j ? r.row1 : r.row0) - k0 - r.cq;
+    ok[j] = !a.causal || lim >= 63 ? w
+            : lim < 0             ? 0ull
+                                  : w & (~0ull >> (63 - lim));
+  }
+}
+
+// the pair of 16-bit lanes selected by bits `pos` and `pos + 1` of w: each
+// lane all ones where its bit is set
+__device__ __forceinline__ uint32_t pair_lanes(uint64_t w, int pos) {
+  const uint32_t t = static_cast<uint32_t>(w >> pos);
+  return ((t & 1u) | ((t & 2u) << 15)) * 0xFFFFu;
+}
+
+// native_scores in packed pairs: pair q holds the thread's row (q & 1 ?
+// row1 : row0) at keys k0 + 8 (q / 2) + cq + {0, 1}, each bf16(bf16(s) *
+// scale_b) (scale2: scale_b in both halves), bf16(-1e30) where the key is
+// disallowed, -inf past Lkv; r.bits the key mask's bits (load_kept_bits)
+// or null.
+template <class Rows, class Args>
+__device__ __forceinline__ void native_pairs(const float (&sc)[32],
+                                             uint32_t (&x2)[16], int k0,
+                                             const Rows& r, const Args& a,
+                                             uint32_t scale2) {
+#pragma unroll
+  for (int q = 0; q < 16; ++q)
+    x2[q] = bmul2(pack_bf16(sc[2 * q], sc[2 * q + 1]), scale2);
+  if (native_whole(k0, r, a)) return;
+  uint64_t ok[2];
+  tile_allowed(r, a, k0, ok);
+  constexpr uint32_t kMasked2 = kMaskedBf16 | (kMaskedBf16 << 16);
+  if (k0 + 64 <= a.Lkv) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const uint32_t keep = pair_lanes(ok[q & 1], 8 * (q / 2));
+      x2[q] = (x2[q] & keep) | (kMasked2 & ~keep);
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    uint32_t out = 0;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = k0 + 8 * (q / 2) + r.cq + c;
+      const uint32_t h = (x2[q] >> (16 * c)) & 0xFFFFu;
+      out |= (key >= a.Lkv ? kNegInfBf16
+              : (ok[q & 1] >> (8 * (q / 2) + c)) & 1 ? h : kMaskedBf16)
+             << (16 * c);
+    }
+    x2[q] = out;
+  }
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so the library needs

@@ -290,24 +290,50 @@ def _allowed(lq: int, lkv: int, causal: bool, prefix_len: int,
     return allowed
 
 
+def _flash_scores(q, k, causal, prefix_len, kv_mask, scale, dt):
+    """The masked scores of ``_block_probs`` in ``dt``: the float32 score
+    product, rounded to ``dt`` and times the scale rounded to it where
+    ``dt`` is not float32; -1e30 where a key is disallowed."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)).to(dt)
+    s = s * torch.tensor(scale, dtype=dt) if dt != torch.float32 \
+        else s * scale
+    if causal or kv_mask is not None:
+        s = s.masked_fill(~_allowed(q.shape[2], k.shape[2], causal,
+                                    prefix_len, kv_mask, q.device), NEG_INF)
+    return s
+
+
+def _native_row_stats(s):
+    """(row max, bf16(1 / z)) of the input-dtype softmax's scores ``s``,
+    each ``[..., Lq, 1]`` in ``s``'s dtype: the max, and the reciprocal of
+    the float32 normaliser of ``exp(s - max)`` rounded to the dtype."""
+    m = s.amax(dim=-1, keepdim=True)
+    z = torch.exp(s - m).float().sum(dim=-1, keepdim=True)
+    return m, (1.0 / z).to(s.dtype)
+
+
 def _flash_probs(q, k, causal, prefix_len, kv_mask, scale, dropout_rate,
-                 seed, native: bool = False):
+                 seed, native: bool = False, row_stats=None):
     """(P, drop(P)) as ``_block_probs`` computes them, as float32 tensors.
     With ``native`` (``softmax_native``), in q's dtype: the float32 score
     product rounded to it, times the scale rounded to it; the row max and
     ``exp(s - max)`` in it; the normaliser summed in float32, its
     reciprocal rounded to q's dtype and multiplied in; a kept probability
     divided by ``1 - rate`` rounded to q's dtype (0.8984375 at rate 0.1 in
-    bfloat16)."""
+    bfloat16). ``row_stats`` (``[B, H, Lq, 2]``, as
+    :func:`flash_attention_stats_plain` gives them) supplies the native
+    row max and reciprocal instead of computing them."""
     dt = q.dtype if native else torch.float32
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)).to(dt)
-    s = s * torch.tensor(scale, dtype=dt) if native else s * scale
-    if causal or kv_mask is not None:
-        s = s.masked_fill(~_allowed(q.shape[2], k.shape[2], causal,
-                                    prefix_len, kv_mask, q.device), NEG_INF)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    z = e.float().sum(dim=-1, keepdim=True)
-    p = e * (1.0 / z).to(dt) if native else e / z
+    s = _flash_scores(q, k, causal, prefix_len, kv_mask, scale, dt)
+    if not native:
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+    else:
+        if row_stats is None:
+            m, rz = _native_row_stats(s)
+        else:
+            m, rz = (row_stats[..., i:i + 1].to(dt) for i in (0, 1))
+        p = torch.exp(s - m) * rz
     if dropout_rate <= 0.0:
         return p.float(), p.float()
     b, h, lq, lkv = p.shape
@@ -316,6 +342,22 @@ def _flash_probs(q, k, causal, prefix_len, kv_mask, scale, dropout_rate,
     keep = (torch.tensor(1.0 - dropout_rate, dtype=dt) if native
             else 1.0 - dropout_rate)
     return p.float(), torch.where(kept, p / keep, p.new_zeros(())).float()
+
+
+def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor, *,
+                                causal: bool = False, prefix_len: int = 0,
+                                kv_mask: Optional[torch.Tensor] = None,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """The input-dtype softmax's row statistics, ``[B, H, Lq, 2]`` float32:
+    the row max of the scores in q's dtype and the reciprocal of the float32
+    normaliser rounded to it, as :func:`flash_attention_plain` takes them
+    with ``softmax_in_input_dtype`` (and ``_block_probs`` with
+    ``softmax_native``). Dropout does not touch them."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _flash_scores(q, k, causal, prefix_len, kv_mask, scale, q.dtype)
+    return torch.cat(_native_row_stats(s), dim=-1).float()
 
 
 def _native_mode(q: torch.Tensor, softmax_in_input_dtype: bool) -> bool:
@@ -356,20 +398,23 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               scale: Optional[float] = None,
                               dropout_rate: float = 0.0,
                               seed: Optional[int] = None,
-                              softmax_in_input_dtype: bool = False):
+                              softmax_in_input_dtype: bool = False,
+                              row_stats: Optional[torch.Tensor] = None):
     """(dq, dk, dv): the closed form of ``_make_bwd_kernel`` in PyTorch ops,
     float32 throughout and cast to the input dtypes. P is recomputed (in
     the input dtype with ``softmax_in_input_dtype``, then upcast, as JAX
-    upcasts the mode's probabilities); the kept mask is recovered as
-    drop(P) > 0; dS = P∘(dP − rowsum(P∘dP)) with the row sum taken from the
-    recomputed P and dP; dP of a kept probability is divided by the float32
-    ``1 - rate`` in both modes."""
+    upcasts the mode's probabilities; from the forward's ``row_stats`` of
+    :func:`flash_attention_stats_plain` where given); the kept mask is
+    recovered as drop(P) > 0; dS = P∘(dP − rowsum(P∘dP)) with the row sum
+    taken from the recomputed P and dP; dP of a kept probability is divided
+    by the float32 ``1 - rate`` in both modes."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
     p, p_used = _flash_probs(q, k, causal, prefix_len, kv_mask, scale,
                              dropout_rate, seed,
-                             _native_mode(q, softmax_in_input_dtype))
+                             _native_mode(q, softmax_in_input_dtype),
+                             row_stats)
     dv = torch.matmul(p_used.transpose(-1, -2), g32)
     dp = torch.matmul(g32, v32.transpose(-1, -2))
     if dropout_rate > 0.0:
@@ -443,11 +488,29 @@ def _flash_checks(name, q, k, v, kv_mask, *more):
     return kv_mask.to(q.device, torch.bool).expand(b, lkv).contiguous()
 
 
+def _stats_buffer(q) -> torch.Tensor:
+    """K4n's row statistics on q's device: float32, per 64-row tile of each
+    (batch, head) the 64 rows' maxima, then their bf16(1 / z)."""
+    b, h, lq, _ = q.shape
+    return torch.empty(b * h * -(-lq // 64) * 128, dtype=torch.float32,
+                       device=q.device)
+
+
+def _stats_rows(stats, b: int, h: int, lq: int) -> torch.Tensor:
+    """K4n's statistics buffer as ``[B, H, Lq, 2]`` (max, bf16(1 / z))."""
+    t = -(-lq // 64)
+    return stats.view(b, h, t, 2, 64).transpose(-1, -2).reshape(
+        b, h, t * 64, 2)[:, :, :lq]
+
+
 def _flash_forward(q, k, v, kv_mask, causal: bool, prefix_len: int,
                    scale: float, dropout_rate: float, seed: Optional[int],
-                   native: bool):
+                   native: bool, stats: Optional[torch.Tensor] = None,
+                   stats_only: bool = False):
     """The plain version for CPU tensors, K4 (K4n with ``native``) for CUDA
-    tensors."""
+    tensors. K4n also writes the rows' (max, bf16(1 / z)) into ``stats``
+    (from :func:`_stats_buffer`) where given, for K8n; ``stats_only`` takes
+    its first two sweeps alone, for those (and returns ``stats``)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      prefix_len=prefix_len, kv_mask=kv_mask,
@@ -458,20 +521,76 @@ def _flash_forward(q, k, v, kv_mask, causal: bool, prefix_len: int,
     lkv = k.shape[2]
     mask = _flash_checks(name, q, k, v, kv_mask)
     code = _kernel.dtype_code(name, q)
-    out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    out = stats if stats_only else torch.empty(
+        (b, h, lq, d), dtype=q.dtype, device=q.device)
     if b and lq:
         _kernel.launch("rtvc_flash_attention", q, q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), out.data_ptr(),
+                       v.data_ptr(), 0 if stats_only else out.data_ptr(),
                        0 if mask is None else mask.data_ptr(), b, h, lq, lkv,
                        d, *_qkv_strides(name, q, k, v, (0, 1, 2)),
-                       *_strides(out, 0, 1, 2), float(scale), int(causal),
+                       *([0, 0, 0] if stats_only
+                         else _strides(out, 0, 1, 2)),
+                       float(scale), int(causal),
                        int(prefix_len), *_dropout_args(dropout_rate, seed),
-                       int(native), code)
-        if native:
+                       int(native),
+                       0 if stats is None else stats.data_ptr(),
+                       int(stats_only), code)
+        if stats_only:
+            flash_attention_stats.launches += 1
+        elif native:
             flash_attention.native_launches += 1
         else:
             flash_attention.launches += 1
     return out
+
+
+def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, *,
+                          causal: bool = False, prefix_len: int = 0,
+                          kv_mask: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The input-dtype softmax's row statistics ``[B, H, Lq, 2]`` (max,
+    bf16(1 / z)), float32. CPU tensors take
+    :func:`flash_attention_stats_plain`; bfloat16 CUDA tensors launch
+    K4n's first two sweeps alone (``launches`` counts them), what
+    :func:`flash_attention_bwd` runs before K8n where no forward left the
+    statistics; anything else raises."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_stats_plain(q, k, causal=causal,
+                                           prefix_len=prefix_len,
+                                           kv_mask=kv_mask, scale=scale)
+    b, h, lq, _ = q.shape
+    return _stats_rows(_stats_launch(q, k, kv_mask, causal, prefix_len,
+                                     scale), b, h, lq)
+
+
+flash_attention_stats.launches = 0
+
+
+def native_probe(device, dropout_rate: float = 0.1) -> list:
+    """The check of K4n/K8n's exact fast exponential and dropout division
+    on the card (``native_probe_sm90``, csrc/flash_attention_sm90.cu): both
+    run on every input of their bf16 domains (d <= 0 and -inf; p in
+    [0, 1] at ``dropout_rate``) beside the per-score formulas. Returns its 8
+    counts: exponential inputs, mismatches, pairs that took expf, normal
+    expf(d) outside the bracket, the largest relative error (float32 bits);
+    division inputs, mismatches, pairs that divided."""
+    out = torch.zeros(8, dtype=torch.int32, device=device)
+    _kernel.require("native_probe", out.is_cuda, "runs on a CUDA device")
+    _kernel.launch("rtvc_native_probe", out, out.data_ptr(),
+                   float(1.0 - dropout_rate))
+    return out.tolist()
+
+
+def _stats_launch(q, k, kv_mask, causal, prefix_len, scale):
+    """K4n's statistics buffer from its stats-only launch (v is not read:
+    k stands in for it)."""
+    _kernel.require("flash_attention_stats", q.dtype == torch.bfloat16,
+                    "the input-dtype softmax's statistics take bfloat16")
+    return _flash_forward(q, k, k, kv_mask, causal, prefix_len, scale, 0.0,
+                          None, True, stats=_stats_buffer(q),
+                          stats_only=True)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -487,10 +606,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention_bwd_plain`; CUDA tensors launch K8 (float32 on
     the CUDA cores, or bfloat16 on the tensor cores with 16-byte aligned
     strides for TMA; D ≤ 64, D contiguous), or K8n for bfloat16 with
-    ``softmax_in_input_dtype``, or raise."""
+    ``softmax_in_input_dtype``, after K4n's stats-only launch (autograd
+    hands K8n the forward's statistics instead), or raise."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     native = _native_mode(q, softmax_in_input_dtype)
+    return _flash_backward(q, k, v, g, kv_mask, causal, prefix_len, scale,
+                           dropout_rate, seed, native)
+
+
+def _flash_backward(q, k, v, g, kv_mask, causal: bool, prefix_len: int,
+                    scale: float, dropout_rate: float, seed: Optional[int],
+                    native: bool, row_stats: Optional[torch.Tensor] = None):
+    """The plain version for CPU tensors, K8 (K8n with ``native``, from the
+    forward's ``row_stats`` of :func:`_stats_buffer`, or from a stats-only
+    K4n launch where None) for CUDA tensors."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, g, causal=causal, prefix_len=prefix_len,
@@ -505,10 +635,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = _kernel.dtype_code(name, q)
     dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
                   for n in (lq, lkv, lkv))
-    # per query row: max, softmax normaliser and rowsum(P∘dP), float32,
-    # for every row of the 64-row tiles (the bfloat16 kernels' layout)
-    stats = torch.empty(3 * b * h * -(-lq // 64) * 64, dtype=torch.float32,
-                        device=q.device)
+    delta = None
+    if native:
+        # K4n's (max, bf16(1 / z)) per row, and a scratch for rowsum(P∘dP)
+        if row_stats is None and b and lq:
+            row_stats = _stats_launch(q, k, mask, causal, prefix_len, scale)
+        stats = row_stats
+        delta = torch.empty(b * h * -(-lq // 64) * 64, dtype=torch.float32,
+                            device=q.device)
+    else:
+        # per query row: max, softmax normaliser and rowsum(P∘dP), float32,
+        # for every row of the 64-row tiles (the bfloat16 kernels' layout)
+        stats = torch.empty(3 * b * h * -(-lq // 64) * 64,
+                            dtype=torch.float32, device=q.device)
     if q.dtype == torch.bfloat16:
         strides = [s for t in (q, k, v, g)
                    for s in _tma_strides(name, t, 0, 1, 2)]
@@ -521,7 +660,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        stats.data_ptr(),
                        0 if mask is None else mask.data_ptr(), b, h, lq, lkv,
                        d, *strides, float(scale), int(causal), int(prefix_len),
-                       *_dropout_args(dropout_rate, seed), int(native), code)
+                       *_dropout_args(dropout_rate, seed), int(native),
+                       0 if delta is None else delta.data_ptr(), code)
         if native:
             flash_attention_bwd.native_launches += 1
         else:
@@ -540,21 +680,28 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, prefix_len, scale,
-                dropout_rate, seed, native):
-        ctx.save_for_backward(q, k, v, kv_mask)
-        ctx.args = dict(causal=causal, prefix_len=prefix_len, scale=scale,
-                        dropout_rate=dropout_rate, seed=seed,
-                        softmax_in_input_dtype=native)
-        return _flash_forward(q, k, v, kv_mask, causal, prefix_len, scale,
-                              dropout_rate, seed, native)
+                dropout_rate, seed, native, keep_stats):
+        args = (causal, prefix_len, scale, dropout_rate, seed, native)
+        ctx.args = args
+        if native and keep_stats and q.is_cuda:
+            # K4n leaves its row statistics for K8n, which then skips
+            # computing them again
+            stats = _stats_buffer(q)
+            out = _flash_forward(q, k, v, kv_mask, *args, stats=stats)
+        else:
+            stats = None
+            out = _flash_forward(q, k, v, kv_mask, *args)
+        ctx.save_for_backward(q, k, v, kv_mask, stats)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, kv_mask = ctx.saved_tensors
+        q, k, v, kv_mask, stats = ctx.saved_tensors
         if g.stride(-1) != 1:
             g = g.contiguous()
-        grads = flash_attention_bwd(q, k, v, g, kv_mask=kv_mask, **ctx.args)
-        return (*grads,) + (None,) * 7
+        grads = _flash_backward(q, k, v, g, kv_mask, *ctx.args,
+                                row_stats=stats)
+        return (*grads,) + (None,) * 8
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -592,10 +739,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             seed = draw_seed(generator)
     else:
         seed = None
+    keep_stats = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     return _FlashAttention.apply(q, k, v, kv_mask, bool(causal),
                                  int(prefix_len), float(scale),
                                  float(dropout_rate), seed,
-                                 _native_mode(q, softmax_in_input_dtype))
+                                 _native_mode(q, softmax_in_input_dtype),
+                                 keep_stats)
 
 
 flash_attention.launches = 0

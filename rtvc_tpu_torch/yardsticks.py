@@ -98,6 +98,18 @@ def flash_work(q, k, v, *, causal: bool = False, prefix_len: int = 0,
                 peak(q.dtype))
 
 
+def flash_stats_work(q, k, *, causal: bool = False, prefix_len: int = 0,
+                     kv_mask: Optional[torch.Tensor] = None, **_) -> Work:
+    """K4n's stats-only launch: q and k (and the key mask) read, two float32
+    values written a row; one product of 2·D operations per allowed
+    pair."""
+    b, h, lq, d = q.shape
+    pairs = allowed_pairs(b, lq, k.shape[2], causal, prefix_len, kv_mask)
+    extra = 0 if kv_mask is None else kv_mask.numel()
+    return Work(nbytes(q, k) + b * h * lq * 8 + extra, 2 * d * h * pairs,
+                peak(q.dtype))
+
+
 def flash_bwd_work(q, k, v, g, *, causal: bool = False, prefix_len: int = 0,
                    kv_mask: Optional[torch.Tensor] = None, **_) -> Work:
     """K8: q, k, v, dO read, dQ, dK, dV written; five products of 2·D
@@ -247,6 +259,12 @@ def flash_library(q, k, v, *, causal: bool = False, prefix_len: int = 0,
         "F.scaled_dot_product_attention(attn_mask=bool)",
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                scale=scale))
+
+
+def flash_stats_library(q, k, **_) -> Yardstick:
+    """K4n's stats-only launch: no one PyTorch call gives the row max of
+    the bf16 scores and the bf16 reciprocal of their float32 normaliser."""
+    return Yardstick("none: no PyTorch call computes these statistics", None)
 
 
 def blhd_library(q, k, v, scale=None) -> Yardstick:
