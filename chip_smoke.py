@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's caption step and its server, its evaluation
-path, frozen teacher (also in the input-dtype softmax, with its sampled
+"""Drive the PyTorch port's caption step, its server and its exported and
+compiled programs, its evaluation path, frozen teacher (also in the input-dtype softmax, with its sampled
 beam and ``teacher_generate``), distillation train step and training loop
 once on an NVIDIA GPU.
 
@@ -68,6 +68,17 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    frames) must all answer 200 with the in-process captions. The
    JPEG/PNG frame path needs ``cv2``, which the card's machine lacks: it
    is tested on the CPU (tests/test_torch_serving_http.py), not here;
+5b. export: the same student and windows through ``export.save_bundle``
+   (greedy and beam 3, buckets 1 and 8) and ``load_bundle``: every
+   exported call's rows must equal the live ``make_caption_step``'s bit
+   for bit and launch K1 and K2 exactly the layer counts (10 K1; 20 + 6 a
+   decode step K2, all 25 steps greedy, 24 beam), nothing else; one
+   exported b8 call under ``profile_trace`` must show K1's and K2's
+   kernels; ``save_compiled`` (AOTInductor) at b8 greedy on a ``lively_``
+   copy must give that copy's live rows and the same launches. Exported,
+   compiled and live ms per window are timed in the same run, and K1 and
+   K2 through their ``rtvc::`` operators against the direct launch on the
+   host (the operators' share of a b1 greedy step);
 6. eval: an MSRVTT-format test split in a temporary directory (20 seeded
    .npy clips of 12 frames at 320×240, 20 captions a clip from the
    synthetic vocabulary's words, encoded by the port's tokenizer). The bf16
@@ -240,6 +251,10 @@ KERNELS = {
         "rtvc_tpu_torch/csrc/flash_attention_sm90.cu",
         "rtvc_tpu/ops/attention.py:136"),
 }
+KERNEL_ZERO = {name: 0 for name in KERNELS}
+# K1's and K2's kernel symbols, as a profiler trace names them
+TRACE_SYMBOLS = {"window_attention": "window_attention_sm90_kernel",
+                 "layer_norm": "layer_norm_vec_kernel"}
 # the sampled teacher beam of the generate phase
 SAMPLE = dict(do_sample=True, temperature=1.0, top_k=50, top_p=0.9)
 TRAIN_STEPS = 5
@@ -1255,10 +1270,17 @@ def serve(student, windows, vocab_int8: bool, beam: int = 0):
     or with ``beam`` beams. Returns (rows at batch 1, rows at batch 8, ms
     per window at batch 1, ms per window at batch 8, launch counts of this
     run)."""
-    import torch
     from rtvc_tpu_torch.serving import make_caption_step
-    step = make_caption_step(student, max_len=MAX_LEN, beam=beam,
-                             vocab_int8=vocab_int8)
+    return run_step(make_caption_step(student, max_len=MAX_LEN, beam=beam,
+                                      vocab_int8=vocab_int8), windows)
+
+
+def run_step(step, windows):
+    """:func:`serve` for any ``step(frames_u8) -> rows`` on the card: a
+    warm-up pass, then the 8 windows one by one and as one batch of 8, each
+    call between CUDA events, the launch counts reset before and read
+    after."""
+    import torch
     for i in range(WINDOWS):   # warm-up pass: cuDNN, allocator, clocks
         step(windows[i:i + 1])
     step(windows)
@@ -1641,6 +1663,296 @@ def serve_phase(dev, student_f32, student, windows_cpu) -> dict:
         "greedy": server_run(student, windows_cpu, dev, 0),
         f"beam{SERVE_BEAM}": server_run(student, windows_cpu, dev,
                                         SERVE_BEAM)}
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the exported and compiled caption programs
+# ---------------------------------------------------------------------------
+
+def caption_launches(student, decode_calls: int) -> dict:
+    """K1 and K2 launches of one caption-step call, from the layer counts:
+    K1 a TinyViT attention block, K2 its two norms, and the decoder's three
+    norms a layer at each of ``decode_calls`` decode steps; no other
+    kernel."""
+    blocks = sum(student.image_encoder["model"].config.depths[1:])
+    want = dict(KERNEL_ZERO)
+    want.update(window_attention=blocks,
+                layer_norm=2 * blocks
+                + 3 * len(student.decoder["layers"]) * decode_calls)
+    return want
+
+
+def trace_kernels(logdir: str) -> dict:
+    """Device kernel events of the Chrome trace ``profile_trace`` wrote
+    into ``logdir``: their number, their summed µs, the µs from the first
+    kernel's start to the last one's end, and the events of K1's and K2's
+    symbols."""
+    import glob
+    import re
+    (path,) = glob.glob(f"{logdir}/*.json")
+    with open(path) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    names = [e.get("name", "") for e in kernels]
+    span = (max(e["ts"] + e["dur"] for e in kernels)
+            - min(e["ts"] for e in kernels)) if kernels else 0.0
+    return {"kernel_events": len(names),
+            "kernel_us": sum(e["dur"] for e in kernels), "span_us": span,
+            **{name: sum(bool(re.search(r"\b" + sym + r"\b", n))
+                         for n in names)
+               for name, sym in TRACE_SYMBOLS.items()}}
+
+
+def dispatch_host_us(dev) -> dict:
+    """Host µs a call of K1 (stage 1, b1: [64, 6, 49, 32] bf16) and K2
+    ([8, 576] bf16), each through its ``rtvc::`` operator and through the
+    direct launch, 1000 calls after warm-up (``time.perf_counter``, no
+    graph, one synchronise at the end)."""
+    import torch
+    from rtvc_tpu_torch.ops import attention, layernorm
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    q, k, v = (torch.randn(64, 6, 49, 32, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    bias = torch.randn(6, 49, 49, generator=g, device=dev)
+    x = torch.randn(8, 576, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(576, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(576, generator=g, device=dev).to(torch.bfloat16)
+    scale = 32 ** -0.5
+    calls = {
+        "K1 op": lambda: torch.ops.rtvc.window_attention(q, k, v, bias,
+                                                         scale, False),
+        "K1 direct": lambda: attention._window_kernel(q, k, v, bias, scale,
+                                                      False),
+        "K2 op": lambda: torch.ops.rtvc.layer_norm(x, w, b, 1e-5),
+        "K2 direct": lambda: layernorm._layer_norm_kernel(x, w, b, 1e-5)}
+    out = {}
+    with torch.inference_mode():
+        for _ in range(2):  # the second pass is the one kept
+            for name, fn in calls.items():
+                for _ in range(100):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(1000):
+                    fn()
+                torch.cuda.synchronize()
+                out[name] = (time.perf_counter() - t0) / 1000 * 1e6
+    log("  host µs a call, operator vs direct launch: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def dispatch_decision(dispatch: dict, sl: dict, student) -> dict:
+    """What the operators' dispatch adds to the b1 greedy caption step:
+    (operator − direct) µs of K1 and K2 times their launches in one b1 step
+    (10 K1; 20 + 6 a decode step K2, at the slice phase's mean decode
+    steps), as a share of the slice phase's b1 ms per window. Over 5%
+    would send eager calls to the direct launch."""
+    import torch
+    per = caption_launches(student, 1)
+    steps = [decode_steps(torch.tensor([r]), student.sep_token_id)
+             for r in sl["default"]["rows_b1"]]
+    k2 = per["layer_norm"] - 3 * len(student.decoder["layers"])
+    k2 += 3 * len(student.decoder["layers"]) * sum(steps) / len(steps)
+    extra_ms = ((dispatch["K1 op"] - dispatch["K1 direct"])
+                * per["window_attention"]
+                + (dispatch["K2 op"] - dispatch["K2 direct"]) * k2) / 1e3
+    share = extra_ms / sl["default"]["ms_per_window_b1"]
+    log(f"  operator dispatch adds {extra_ms:.3f} ms to a b1 greedy step "
+        f"of {sl['default']['ms_per_window_b1']:.3f} ms ({100 * share:.2f}%"
+        f", limit 5%)")
+    return {"dispatch_extra_ms_b1": extra_ms, "dispatch_share_b1": share}
+
+
+def export_phase(dev, student, windows_cpu) -> dict:
+    """``export.save_bundle`` of the serve phase's bf16 student (buckets 1
+    and 8 greedy, 1 and 8 at beam SERVE_BEAM; 480×640 6-frame windows,
+    MAX_LEN 25), loaded back with ``load_bundle``. Gates: every exported
+    program's rows equal the live ``make_caption_step``'s bit for bit at
+    b1 × 8, b8 and beam b1 × 8, b8 (greedy rows as the host-stop step
+    leaves them: 0 after its stop); each call launches K1 and K2 exactly
+    the layer counts (greedy: all MAX_LEN decode steps; beam: MAX_LEN - 1)
+    and nothing else; a ``profile_trace`` of one exported b8 call names
+    K1's and K2's kernels. Then ``save_compiled`` at b8 greedy on a
+    ``lively_`` copy: its rows equal that copy's live step, its launches
+    the exported program's. Times (CUDA events) beside the live step's."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="rtvc_export_") as tmp:
+        result = export_runs(dev, student, windows_cpu.to(dev), tmp)
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
+def export_runs(dev, student, windows, tmp: str) -> dict:
+    """:func:`export_phase`'s runs, their artifacts in ``tmp``."""
+    import os
+    import torch
+    from rtvc_tpu_torch import export
+    from rtvc_tpu_torch.config import cfg
+    from rtvc_tpu_torch.serving import make_caption_step
+    from rtvc_tpu_torch.utils.profiling import profile_trace
+
+    sep = cfg.student.sep_token_id
+    frame_shape = FRAME_HW + (3,)
+    variables = export.serving_variables(student)
+    params_bytes = sum(t.numel() * t.element_size()
+                       for t in variables.values())
+    want = {0: caption_launches(student, MAX_LEN),
+            SERVE_BEAM: caption_launches(student, MAX_LEN - 1)}
+    result = {"params_bytes": params_bytes, "programs": {},
+              "launches": dict(KERNEL_ZERO)}
+
+    def read_counts() -> dict:
+        launched = counts()
+        for k, n in launched.items():
+            result["launches"][k] += n
+        return launched
+
+    export_s = []
+    inner = export.export_caption_program
+
+    def timed_export(*args, **kw):
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        export_s.append(time.perf_counter() - t0)
+        return out
+
+    export.export_caption_program = timed_export
+    try:
+        bundles = {}
+        for beam in (0, SERVE_BEAM):
+            out = os.path.join(tmp, f"beam{beam}")
+            manifest = export.save_bundle(
+                out, student, variables, buckets=(1, WINDOWS),
+                window=FRAMES, frame_shape=frame_shape, max_len=MAX_LEN,
+                beam=beam, device=dev)
+            for b, seconds in zip(manifest["buckets"], export_s[-2:]):
+                name = manifest["programs"][str(b)]
+                size = os.path.getsize(os.path.join(out, name))
+                key = f"beam{beam}_b{b}"
+                result["programs"][key] = dict(export_s=seconds, bytes=size)
+                log(f"  export {key}: {seconds:.2f} s, {name} {size} bytes "
+                    f"(params {params_bytes} bytes, {size / params_bytes:.4f}"
+                    f" of them)")
+                if size >= params_bytes / 10:
+                    raise AssertionError(f"{key}: the program file holds "
+                                         f"more than a tenth of the params' "
+                                         f"bytes")
+            t0 = time.perf_counter()
+            bundles[beam] = export.load_bundle(out)
+            result[f"beam{beam}_load_s"] = time.perf_counter() - t0
+    finally:
+        export.export_caption_program = inner
+
+    for beam, cap in bundles.items():
+        live = make_caption_step(student, max_len=MAX_LEN, beam=beam)
+        for label, frames in ([(f"b1 window {i}", windows[i:i + 1])
+                               for i in range(WINDOWS)]
+                              + [("b8", windows)]):
+            reset_counts()
+            got = cap(frames)
+            torch.cuda.synchronize()
+            launched = read_counts()
+            ref = live(frames)
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"exported beam={beam} {label}: rows differ from the live"
+                    f" step's at {int((got != ref).sum())} ids")
+            check_launches(f"exported beam={beam} {label}", launched,
+                           want[beam])
+        _, _, ms1_x, ms8_x, launched_x = run_step(cap, windows)
+        for k, n in launched_x.items():
+            result["launches"][k] += n
+        rows1_l, rows8_l, ms1_l, ms8_l, _ = run_step(live, windows)
+        check_launches(f"exported beam={beam} timed run", launched_x,
+                       {k: n * (WINDOWS + 1) for k, n in want[beam].items()})
+        mode = f"beam{beam}" if beam else "greedy"
+        entry = dict(exported_ms_per_window_b1=ms1_x,
+                     exported_ms_per_window_b8=ms8_x,
+                     live_ms_per_window_b1=ms1_l,
+                     live_ms_per_window_b8=ms8_l,
+                     launches_per_call=want[beam])
+        if not beam:
+            entry.update(
+                live_decode_steps_b1=[decode_steps(rows1_l[i:i + 1], sep)
+                                      for i in range(WINDOWS)],
+                live_decode_steps_b8=decode_steps(rows8_l, sep),
+                exported_decode_steps=MAX_LEN)
+        result[mode] = entry
+        log(f"  {mode:6s} rows equal the live step's (b1 x 8, b8); launches"
+            f" a call {want[beam]['window_attention']} K1, "
+            f"{want[beam]['layer_norm']} K2")
+        log(f"  {mode:6s} ms/window exported b1 {ms1_x:.3f} b8 {ms8_x:.3f};"
+            f" live b1 {ms1_l:.3f} b8 {ms8_l:.3f}"
+            + ("" if beam else f" (live decode steps b1 "
+               f"{entry['live_decode_steps_b1']}, b8 "
+               f"{entry['live_decode_steps_b8']}; exported {MAX_LEN})"))
+
+    result["trace"] = {}
+    live = make_caption_step(student, max_len=MAX_LEN)
+    for label, step in (("exported", bundles[0]), ("live", live)):
+        logdir = os.path.join(tmp, f"trace_{label}")
+        step(windows)  # warm
+        torch.cuda.synchronize()
+        with profile_trace(logdir):
+            step(windows)
+            torch.cuda.synchronize()
+        result["trace"][label] = trace_kernels(logdir)
+        log(f"  profile_trace of one {label} greedy b8 call: "
+            f"{json.dumps(result['trace'][label])}")
+    seen = result["trace"]["exported"]
+    missing = [k for k in TRACE_SYMBOLS if not seen[k]]
+    if missing:
+        raise AssertionError(f"the trace names no kernel of {missing}")
+
+    lively = copy.deepcopy(student)
+    lively_(lively)
+    path = os.path.join(tmp, f"compiled_b{WINDOWS}.pt2")
+    t0 = time.perf_counter()
+    # the package's C++ wrapper at -O0: ~167 s of save_compiled instead of
+    # ~307 s at Inductor's default -O1, at ~5.0 instead of ~3.3 ms a window
+    # (PERF.md §6); it keeps the whole script near half its time limit
+    with torch._inductor.config.patch(
+            {"aot_inductor.compile_wrapper_opt_level": "O0"}):
+        export.save_compiled(path, lively, export.serving_variables(lively),
+                             batch=WINDOWS, window=FRAMES,
+                             frame_shape=frame_shape, max_len=MAX_LEN,
+                             device=dev)
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn, meta = export.load_compiled(path)
+    load_s = time.perf_counter() - t0
+    lively_vars = export.serving_variables(lively)
+    with torch.inference_mode():
+        reset_counts()
+        got = fn(lively_vars, windows)
+        torch.cuda.synchronize()
+        launched = read_counts()
+    ref = make_caption_step(lively, max_len=MAX_LEN)(windows)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"compiled b8: rows differ from the lively "
+                             f"student's live step at "
+                             f"{int((got != ref).sum())} ids")
+    check_launches("compiled b8", launched, want[0])
+    with torch.inference_mode():
+        ms_c = cuda_ms(lambda: fn(lively_vars, windows), reps=5,
+                       warmup=2) / WINDOWS
+    ms_l = cuda_ms(lambda: make_caption_step(lively, max_len=MAX_LEN)(
+        windows), reps=5, warmup=2) / WINDOWS
+    result["compiled"] = dict(
+        compile_s=compile_s, load_s=load_s, bytes=os.path.getsize(path),
+        ms_per_window_b8=ms_c, lively_live_ms_per_window_b8=ms_l,
+        live_decode_steps_b8=decode_steps(ref, sep),
+        distinct_rows=len({tuple(r) for r in ref.tolist()}))
+    log(f"  compiled b8 (lively_): save_compiled {compile_s:.1f} s, load "
+        f"{load_s:.2f} s, {result['compiled']['bytes']} bytes; rows equal "
+        f"the live step's ({result['compiled']['distinct_rows']} distinct); "
+        f"launches {want[0]['window_attention']} K1, "
+        f"{want[0]['layer_norm']} K2; ms/window {ms_c:.3f} against live "
+        f"{ms_l:.3f}")
+    del lively
     return result
 
 
@@ -2572,7 +2884,6 @@ LOOP_EPOCHS = 2
 LOOP_BEAM_TOP_K = 128          # the beam cache's top-K consensus rows
 LOOP_KILL = (2, 1)             # SIGTERM before batch 1 of the 2nd epoch
 REMAT_STEPS = 2
-KERNEL_ZERO = {name: 0 for name in KERNELS}
 
 
 def _sub(a: dict, b: dict) -> dict:
@@ -3057,6 +3368,7 @@ def main(argv=None) -> int:
                       .items() if k.endswith("_native")})
     extra = native_f32_check(dev)
     extra.update(add_ln_grad_check(dev))
+    dispatch = dispatch_host_us(dev)
     log(f"[slice] full-width student, caption steps (kernel phase took "
         f"{time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
@@ -3066,11 +3378,16 @@ def main(argv=None) -> int:
         f"(slice phase took {time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     sv = serve_phase(dev, student_f32, student, windows_cpu)
+    log(f"[export] exported bundle (greedy and beam {SERVE_BEAM}, buckets 1 "
+        f"and {WINDOWS}) and compiled package (serve phase took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    xp = export_phase(dev, student, windows_cpu)
+    xp["dispatch_host_us"] = dispatch
+    xp.update(dispatch_decision(dispatch, sl, student))
     del student_f32, student, windows_cpu
     torch.cuda.empty_cache()
     log(f"[eval] evaluation path: MSRVTT-format split, evaluate CLI, beam "
-        f"{EVAL_BEAM}, pruning (serve phase took "
-        f"{time.perf_counter() - t0:.1f} s)")
+        f"{EVAL_BEAM}, pruning (export phase took {xp['seconds']:.1f} s)")
     ev = eval_phase(dev)
     torch.cuda.empty_cache()
     log(f"[teacher] full-width GIT-Large teacher, bf16 (eval phase took "
@@ -3117,6 +3434,7 @@ def main(argv=None) -> int:
         head = next(r for r in mine if r["case"].startswith(primary[name]))
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=sl["launches"][name] + sv["launches"][name]
+                   + xp["launches"][name]
                    + ev["launches"][name] + te["launches"][name]
                    + gn["launches"][name] + tr["launches"][name]
                    + lp["launches"][name],
@@ -3149,7 +3467,7 @@ def main(argv=None) -> int:
             json.dump(dict(device=smi, sass=sass, kernels=kernels,
                            cases=records, grad_checks=extra,
                            native_probe=probe, slice=sl,
-                           serve=sv, eval=ev, teacher=te, generate=gn,
+                           serve=sv, export=xp, eval=ev, teacher=te, generate=gn,
                            train=tr, loop=lp), f,
                       indent=1)
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
-"""rtvc_tpu_torch — the caption step and its serving surface, the frozen
-GIT-Large teacher, the distillation train step and its training loop, and
-the evaluation path (COCO metrics, the MSRVTT loader, checkpoint scoring,
-pruning) of
+"""rtvc_tpu_torch — the caption step and its serving surface (in-process,
+HTTP, gRPC, exported and compiled programs), the frozen GIT-Large teacher,
+the distillation train step and its training loop, and the evaluation path
+(COCO metrics, the MSRVTT loader, checkpoint scoring, pruning) of
 ``rtvc_tpu`` in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
 (``sm_90a``).
 
@@ -10,10 +10,13 @@ counterpart of the same name there:
 
 - ``config``            ➜ ``rtvc_tpu/config.py`` + the model configs'
                           defaults (copied: importing ``rtvc_tpu`` imports jax)
-- ``ops.preprocess``    ➜ ``rtvc_tpu/ops/preprocess.py``
-- ``ops.layernorm``     ➜ ``rtvc_tpu/ops/layernorm.py`` (kernels K2, K6)
+- ``ops.preprocess``    ➜ ``rtvc_tpu/ops/preprocess.py`` (with
+                          ``preprocess_clip_batch``)
+- ``ops.masking``       ➜ ``rtvc_tpu/ops/masking.py``
+- ``ops.layernorm``     ➜ ``rtvc_tpu/ops/layernorm.py`` (kernels K2, K6;
+                          K2 is the operator ``rtvc::layer_norm``)
 - ``ops.attention``     ➜ ``rtvc_tpu/ops/attention.py`` (kernels K1, K4, K5,
-                          K8)
+                          K8; K1 is the operator ``rtvc::window_attention``)
 - ``ops.depthwise``     ➜ ``rtvc_tpu/ops/depthwise.py`` (kernel K9)
 - ``ops.quantization``  ➜ ``rtvc_tpu/ops/quantization.py``
 - ``ops.int8_gemm``     ➜ ``rtvc_tpu/ops/int8_gemm.py`` (kernels K3, K7)
@@ -25,6 +28,11 @@ counterpart of the same name there:
                           or beam; ``BatchCaptionServer``; loading and the
                           CLI demo)
 - ``serving_http``      ➜ ``rtvc_tpu/serving_http.py`` (the HTTP front)
+- ``serving_grpc``, ``proto`` ➜ ``rtvc_tpu/serving_grpc.py``,
+                          ``rtvc_tpu/proto/`` (the gRPC front; the same
+                          messages; grpcio needed only to serve)
+- ``export``            ➜ ``rtvc_tpu/export.py`` (``torch.export`` bundles
+                          and AOTInductor packages of the caption step)
 - ``real_time_inference`` ➜ ``rtvc_tpu/real_time_inference.py``
 - ``tokenization``      ➜ ``rtvc_tpu/tokenization/`` (copied: pure Python)
 - ``data.io``           ➜ ``rtvc_tpu/data/io.py`` (checkpoints as
@@ -39,7 +47,8 @@ counterpart of the same name there:
 - ``data.video_handlers``, ``data.frame_sampling`` ➜ the same modules
                           (copied; ``cv2`` imported where they decode)
 - ``metrics``           ➜ ``rtvc_tpu/metrics.py`` (copied: pure Python)
-- ``utils.profiling``   ➜ ``rtvc_tpu/utils/profiling.py`` (``StepTimer``)
+- ``utils.profiling``   ➜ ``rtvc_tpu/utils/profiling.py`` (``StepTimer``,
+                          ``profile_trace``)
 - ``utils.logging``     ➜ ``rtvc_tpu/utils/logging.py`` (copied:
                           ``RunLogger``)
 - ``distill``           ➜ ``rtvc_tpu/distill.py`` (the six losses)

@@ -5,8 +5,9 @@ A copy of the values the port needs from the JAX package: importing
 jax. A test holds every field here equal to its JAX counterpart:
 
 - :class:`StudentConfig` ➜ ``rtvc_tpu/config.py`` ``StudentConfig``;
-- :class:`TinyViTConfig`, :func:`tiny_vit_21m_config` ➜
-  ``rtvc_tpu/models/tinyvit.py`` (``dtype`` as a torch dtype);
+- :class:`TinyViTConfig`, :func:`tiny_vit_21m_config`,
+  :func:`tiny_vit_5m_config` ➜ ``rtvc_tpu/models/tinyvit.py`` (``dtype``
+  as a torch dtype);
 - :class:`CLIPViTConfig`, :func:`clip_vit_l14_config` ➜
   ``rtvc_tpu/models/clip_vit.py``; :class:`GITConfig` ➜
   ``rtvc_tpu/models/git_teacher.py``; :class:`TeacherConfig` ➜
@@ -32,6 +33,11 @@ jax. A test holds every field here equal to its JAX counterpart:
   ``wandb``, ``tpu.compute_dtype``, ``tpu.quantize_teacher``,
   ``tpu.remat_encoder`` and ``seed`` (the random inits, the caption
   choice of the loaders, the shuffle and the dropout draws);
+- the reference-style access of ``rtvc_tpu/config.py``:
+  ``Config.__getitem__`` (``cfg["TRAIN"]["BATCH_SIZE"]``, read-only
+  :class:`_DictView` s with the reference's UPPER keys) and
+  :func:`from_dict`; the three ported ``tpu`` fields sit on ``Config``
+  itself and are read and overridden under ``"TPU"`` / ``"tpu"`` as JAX's;
 - not ported: ``tpu.steps_per_dispatch`` (a scan over batches that
   measured slower on the TPU; CUDA graphs are the GPU's analogue).
 """
@@ -40,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
@@ -104,6 +110,14 @@ class TinyViTConfig:
 def tiny_vit_21m_config(**overrides) -> TinyViTConfig:
     """tiny_vit_21m_224 hyperparameters (the student's encoder)."""
     return dataclasses.replace(TinyViTConfig(), **overrides)
+
+
+def tiny_vit_5m_config(**overrides) -> TinyViTConfig:
+    """tiny_vit_5m_224 hyperparameters."""
+    config = TinyViTConfig(embed_dims=(64, 128, 160, 320),
+                           depths=(2, 2, 6, 2), num_heads=(2, 4, 5, 10),
+                           window_sizes=(7, 7, 14, 7), drop_path_rate=0.0)
+    return dataclasses.replace(config, **overrides)
 
 
 @dataclass(frozen=True)
@@ -212,5 +226,114 @@ class Config:
         return {"bfloat16": torch.bfloat16,
                 "float32": torch.float32}[self.compute_dtype]
 
+    # ---- dict-compatible view (reference-style access) ------------------
+    _ALIASES = {
+        "SEED": ("seed",),
+        "DATA": ("data",),
+        "CALLBACK": ("callback",),
+        "LOGGER": ("logger",),
+        "TRAIN": ("train",),
+        "MODEL": None,  # handled specially below
+        "TPU": None,    # the ported TpuConfig fields, below
+        "WANDB": ("wandb",),
+    }
 
+    def __getitem__(self, key: str) -> Any:
+        if key == "MODEL":
+            return {
+                "StudentCandidateV1": _as_view(self.student),
+                "GenerativeImageTextTeacher": _as_view(self.teacher),
+            }
+        if key == "TPU":
+            return _DictView({name: getattr(self, name)
+                              for name in TPU_FIELDS})
+        path = self._ALIASES.get(key)
+        if path is None:
+            raise KeyError(key)
+        obj: Any = self
+        for attr in path:
+            obj = getattr(obj, attr)
+        return _as_view(obj)
+
+
+# the fields of JAX's ``Config.tpu`` that the port keeps on ``Config``
+TPU_FIELDS = ("compute_dtype", "quantize_teacher", "remat_encoder")
+
+
+class _DictView(dict):
+    """Read-only dict view over a dataclass, with reference-style UPPER
+    keys."""
+
+
+_UPPER_KEYS = {
+    # reference key -> dataclass attr
+    "VIDEOS_PATH": "videos_path",
+    "CAPTIONS_PATH": "captions_path",
+    "ENCODED_CAPTION_IDS": "encoded_caption_ids",
+    "STUDENT_MODEL_DEF": "student_model_def",
+    "TEACHER_MODEL_DEF": "teacher_model_def",
+    "TRAINER": "trainer",
+    "LR": "lr",
+    "BATCH_SIZE": "batch_size",
+    "MODE": "mode",
+    "max_epochs": "max_epochs",
+    "precision": "precision",
+    "enable_checkpointing": "enable_checkpointing",
+    "strategy": "strategy",
+}
+
+
+def _as_view(obj: Any) -> Any:
+    if not dataclasses.is_dataclass(obj):
+        return obj
+    view = _DictView()
+    for f in dataclasses.fields(obj):
+        view[f.name] = _as_view(getattr(obj, f.name))
+    # add reference-style UPPER aliases
+    for upper, attr in _UPPER_KEYS.items():
+        if attr in view and upper not in view:
+            view[upper] = view[attr]
+    return view
+
+
+def from_dict(overrides: Mapping[str, Any],
+              base: Optional[Config] = None) -> Config:
+    """Build a Config from a (possibly nested) plain-dict override tree,
+    keys in either case. A ``tpu`` subtree sets the ported TpuConfig
+    fields (``TPU_FIELDS``); any other key raises KeyError."""
+    base = base or Config()
+
+    def merge(dc: Any, over: Mapping[str, Any]) -> Any:
+        updates = {}
+        fields = {f.name for f in dataclasses.fields(dc)}
+        for key, value in over.items():
+            name = key.lower() if key.lower() in fields else key
+            if dc is base and name.lower() == "tpu" \
+                    and isinstance(value, Mapping):
+                updates.update(merge_tpu(value))
+                continue
+            if name not in fields:
+                raise KeyError(f"unknown config key {key!r} for "
+                               f"{type(dc).__name__}")
+            current = getattr(dc, name)
+            if dataclasses.is_dataclass(current) and isinstance(value,
+                                                                Mapping):
+                updates[name] = merge(current, value)
+            else:
+                updates[name] = value
+        return dataclasses.replace(dc, **updates)
+
+    def merge_tpu(over: Mapping[str, Any]) -> dict:
+        out = {}
+        for key, value in over.items():
+            if key.lower() not in TPU_FIELDS:
+                raise KeyError(f"unknown config key {key!r} for TpuConfig "
+                               f"(the port keeps {TPU_FIELDS})")
+            out[key.lower()] = value
+        return out
+
+    return merge(base, overrides)
+
+
+# The global default, mirroring the reference's module-level ``cfg``.
 cfg = Config()

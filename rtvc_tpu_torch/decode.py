@@ -46,10 +46,16 @@ from .models.student import StudentCandidateV1
 @torch.inference_mode()
 def student_greedy(model: StudentCandidateV1, frames: torch.Tensor,
                    max_len: int = 10,
-                   vocab_w8: Optional[Dict[str, torch.Tensor]] = None
-                   ) -> torch.Tensor:
+                   vocab_w8: Optional[Dict[str, torch.Tensor]] = None,
+                   host_stop: bool = True) -> torch.Tensor:
     """Frames ``[B, F, H, W, 3]`` → int32 ``[B, 1 + max_len]``: CLS, the
-    generated ids, 0 after an early stop."""
+    generated ids, 0 after an early stop.
+
+    ``host_stop`` reads the all-rows-SEP test back every token and breaks
+    the loop. ``host_stop=False`` reads nothing back, as an exported
+    program must: it runs all ``max_len`` steps, writes 0 once every row
+    has emitted SEP at one step and keeps the rows of the early stop, as
+    JAX's while-loop leaves them."""
     _, memory = model.forward_image_enc(frames)
     b = frames.shape[0]
     total = 1 + max_len
@@ -57,14 +63,21 @@ def student_greedy(model: StudentCandidateV1, frames: torch.Tensor,
     tokens = torch.zeros((b, total), dtype=torch.int32, device=memory.device)
     tokens[:, 0] = model.cls_token_id
     pos = torch.arange(total, device=memory.device)[None, :]
+    done = None if host_stop else torch.zeros((), dtype=torch.bool,
+                                              device=memory.device)
     for i in range(max_len):
         kv_mask = (pos <= i) & (tokens != 0)
         logits, caches = model.decode_step(tokens[:, i], i, caches, kv_mask,
                                            vocab_w8=vocab_w8)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        tokens[:, i + 1] = nxt
-        if bool((nxt == model.sep_token_id).all()):
-            break
+        stop = (nxt == model.sep_token_id).all()
+        if host_stop:
+            tokens[:, i + 1] = nxt
+            if bool(stop):
+                break
+        else:
+            tokens[:, i + 1] = torch.where(done, 0, nxt)
+            done = done | stop
     return tokens
 
 

@@ -35,6 +35,11 @@ Counterpart of ``rtvc_tpu/ops/attention.py``:
   least ``PALLAS_MIN_KV_LEN`` keys to K4, everything else (and everything
   when ``use_pallas=False``) to the plain path.
 
+K1 is also the ``torch.library`` operator ``rtvc::window_attention``: its
+CPU kernel is the plain version, its CUDA kernel the launch, so that an
+exported or compiled program (``export.py``) keeps each call as a node
+and launches K1 on a card.
+
 K1 and K4 are ``torch.autograd.Function``s: their forward takes the plain
 version for CPU tensors and the kernel for CUDA tensors, and their backward
 is one code path for both (K1's in PyTorch ops, as JAX writes it in XLA;
@@ -163,11 +168,12 @@ def window_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv.to(v.dtype), dbias
 
 
-def _window_forward(q, k, v, bias, scale: float, native: bool):
-    """The plain version for CPU tensors, K1 for CUDA tensors."""
-    if q.device.type == "cpu":
-        return window_attention_plain(q, k, v, bias, scale=scale,
-                                      softmax_in_input_dtype=native)
+def _window_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: torch.Tensor, scale: float,
+                   native: bool) -> torch.Tensor:
+    """K1 on CUDA tensors: ``rtvc::window_attention``'s CUDA kernel. The
+    shape, dtype and alignment checks run here, where the tensors are
+    real."""
     name = "window_attention"
     b, h, n, d = q.shape
     _kernel.require_cuda(name, q, k, v, bias)
@@ -194,6 +200,32 @@ def _window_forward(q, k, v, bias, scale: float, native: bool):
                        int(native), code)
         window_attention.launches += 1
     return out
+
+
+@torch.library.custom_op("rtvc::window_attention", mutates_args=(),
+                         device_types="cpu")
+def _window_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: torch.Tensor, scale: float,
+               native: bool) -> torch.Tensor:
+    """K1 as an operator: the plain version on the CPU, the kernel on CUDA
+    (:func:`_window_kernel`). An exported or compiled program keeps each
+    call as an ``rtvc.window_attention`` node."""
+    return window_attention_plain(q, k, v, bias, scale=scale,
+                                  softmax_in_input_dtype=native)
+
+
+_window_op.register_kernel("cuda")(_window_kernel)
+
+
+@_window_op.register_fake
+def _(q, k, v, bias, scale, native):
+    return torch.empty_like(q)
+
+
+def _window_forward(q, k, v, bias, scale: float, native: bool):
+    """``rtvc::window_attention``: the plain version for CPU tensors, K1
+    for CUDA tensors."""
+    return torch.ops.rtvc.window_attention(q, k, v, bias, scale, native)
 
 
 class _WindowAttention(torch.autograd.Function):

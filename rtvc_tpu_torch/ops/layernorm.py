@@ -8,10 +8,13 @@ in ``csrc/layer_norm.cu``. K2 serves every plain LayerNorm of the caption
 step, the teacher and the train step; K6 the residual add + norm at the
 CLIP blocks' ln_2.
 
-:func:`layer_norm` is a ``torch.autograd.Function``: its forward takes the
-plain version for CPU tensors and K2 for CUDA tensors, and its backward is
-``_fused_ln_bwd``'s closed form in PyTorch ops on both. So is
-:func:`fused_add_layer_norm` (K6), whose backward is
+:func:`layer_norm` is a ``torch.autograd.Function``: its forward calls the
+``torch.library`` operator ``rtvc::layer_norm``, whose CPU kernel is the
+plain version and whose CUDA kernel launches K2 (an exported or compiled
+program, ``export.py``, keeps each call as a node), and its backward is
+``_fused_ln_bwd``'s closed form in PyTorch ops on both.
+:func:`fused_add_layer_norm` (K6) is an autograd Function too (its
+forward the plain version or K6 directly), whose backward is
 ``_fused_add_ln_bwd``'s: the LayerNorm closed form of the rounded sum plus
 the sum's own gradient, the same for x and delta.
 """
@@ -57,10 +60,10 @@ def layer_norm_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
             dbias.to(weight.dtype))
 
 
-def _layer_norm_forward(x, weight, bias, eps: float):
-    """The plain version for CPU tensors, K2 for CUDA tensors."""
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, weight, bias, eps)
+def _layer_norm_kernel(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """K2 on CUDA tensors: ``rtvc::layer_norm``'s CUDA kernel. The checks
+    run here, where the tensors are real."""
     name = "layer_norm"
     width = x.shape[-1]
     _kernel.require_cuda(name, x, weight, bias)
@@ -77,6 +80,30 @@ def _layer_norm_forward(x, weight, bias, eps: float):
                        float(eps), code)
         layer_norm.launches += 1
     return out
+
+
+@torch.library.custom_op("rtvc::layer_norm", mutates_args=(),
+                         device_types="cpu")
+def _layer_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """K2 as an operator: the plain version on the CPU, the kernel on CUDA
+    (:func:`_layer_norm_kernel`). An exported or compiled program keeps
+    each call as an ``rtvc.layer_norm`` node."""
+    return layer_norm_plain(x, weight, bias, eps)
+
+
+_layer_norm_op.register_kernel("cuda")(_layer_norm_kernel)
+
+
+@_layer_norm_op.register_fake
+def _(x, weight, bias, eps):
+    return torch.empty_like(x)
+
+
+def _layer_norm_forward(x, weight, bias, eps: float):
+    """``rtvc::layer_norm``: the plain version for CPU tensors, K2 for
+    CUDA tensors."""
+    return torch.ops.rtvc.layer_norm(x, weight, bias, eps)
 
 
 class _LayerNorm(torch.autograd.Function):

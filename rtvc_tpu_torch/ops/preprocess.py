@@ -2,7 +2,8 @@
 
 Counterpart of ``clip_preprocess`` in ``rtvc_tpu/ops/preprocess.py``:
 uint8 BGR frames → shorter-edge bicubic resize → center crop → BGR→RGB →
-CLIP normalize, NHWC in and out. The resize passes ``antialias=True``:
+CLIP normalize, NHWC in and out; and ``preprocess_clip_batch``, its host
+wrapper for numpy frames. The resize passes ``antialias=True``:
 PyTorch's antialiased bicubic uses the same a = -0.5 cubic kernel as
 ``jax.image.resize`` and matches it to ~1e-5, while the default
 (``antialias=False``) path differs by up to 0.66 on a 480×640 frame.
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -45,3 +47,15 @@ def clip_preprocess(frames: torch.Tensor, crop_size: int = 224,
     std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
     x = (x - mean[:, None, None]) / std[:, None, None]
     return x.permute(0, 2, 3, 1)
+
+
+def preprocess_clip_batch(frames: np.ndarray, crop_size: int = 224,
+                          bgr_to_rgb: bool = True,
+                          device="cuda") -> torch.Tensor:
+    """Host wrapper: numpy uint8 ``[N, H, W, 3]`` or one frame ``[H, W, 3]``
+    → float32 ``[N, crop_size, crop_size, 3]`` on ``device`` (the card by
+    default)."""
+    x = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+    if x.ndim == 3:
+        x = x[None]
+    return clip_preprocess(x, crop_size=crop_size, bgr_to_rgb=bgr_to_rgb)

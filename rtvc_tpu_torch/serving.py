@@ -19,8 +19,8 @@ Counterpart of ``rtvc_tpu/serving.py``:
   program per bucket; here the buckets keep the shapes fixed, the
   condition for batched == solo and for a later CUDA graph;
 - :func:`compress_window` / :func:`decode_compressed_frames`: JPEG/PNG
-  frames for the network fronts (``serving_http``), with the
-  decompression-bomb check; ``cv2`` is imported inside them;
+  frames for the network fronts (``serving_http``, ``serving_grpc``),
+  with the decompression-bomb check; ``cv2`` is imported inside them;
 - :func:`build_serving_student` (with :func:`load_student_weights`, also
   the evaluation entry points' model load), :func:`server_from_frontend_args`
   and the CLI demo (:func:`simulate_streams`, :func:`main`).
@@ -69,7 +69,7 @@ def with_vocab_w8(student: StudentCandidateV1) -> StudentCandidateV1:
 
 def make_caption_step(student: StudentCandidateV1, *, max_len: int = 25,
                       beam: int = 0, crop_size: int = 224,
-                      vocab_int8: bool = False
+                      vocab_int8: bool = False, host_stop: bool = True
                       ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``step(frames_u8)`` maps uint8 ``[B, W, H, Wd, 3]`` frames (BGR, on
     the student's device) to int32 token rows: greedy ``[B, 1 + max_len]``
@@ -79,7 +79,9 @@ def make_caption_step(student: StudentCandidateV1, *, max_len: int = 25,
     ``vocab_int8`` runs the decode loop's vocab projection on kernel K3;
     the student must have been through :func:`with_vocab_w8`. Its logits
     move by about the int8 rounding, so its rows need not equal the default
-    step's. The step runs under its own ``torch.inference_mode()``, which
+    step's. ``host_stop`` goes to :func:`student_greedy`: the exported
+    program (``export.py``) sets it to False, so that greedy reads nothing
+    back. The step runs under its own ``torch.inference_mode()``, which
     is per thread, so any thread may call it."""
     if vocab_int8 and getattr(student, "vocab_w8", None) is None:
         raise ValueError("vocab_int8 needs a student from with_vocab_w8()")
@@ -95,7 +97,7 @@ def make_caption_step(student: StudentCandidateV1, *, max_len: int = 25,
             return student_beam(student, proc, max_len=max_len, k=beam,
                                 vocab_w8=vocab_w8)
         return student_greedy(student, proc, max_len=max_len,
-                              vocab_w8=vocab_w8)
+                              vocab_w8=vocab_w8, host_stop=host_stop)
 
     return step
 
@@ -519,7 +521,7 @@ def build_serving_student(ckpt: Optional[str] = None, device="cuda",
 
 def server_from_frontend_args(a) -> BatchCaptionServer:
     """build_serving_student + the BatchCaptionServer behind a network
-    front (serving_http.main)."""
+    front (serving_http.main, serving_grpc.main)."""
     from .real_time_inference import WINDOW
     from .tokenization import BertWordPieceTokenizer
 

@@ -1,14 +1,17 @@
-"""Step timers: ``StepTimer`` of ``rtvc_tpu/utils/profiling.py``.
+"""Step timers and trace regions: ``rtvc_tpu/utils/profiling.py``.
 
-``stop(sync_on=...)`` waits for the card before it reads the clock
-(``torch.cuda.synchronize`` on the device of each CUDA tensor in
+``StepTimer.stop(sync_on=...)`` waits for the card before it reads the
+clock (``torch.cuda.synchronize`` on the device of each CUDA tensor in
 ``sync_on``), as JAX's waits on ``block_until_ready``. ``profile_trace``
-(a ``jax.profiler`` region in JAX) is not ported yet.
+wraps a region in a ``torch.profiler`` trace (JAX: a ``jax.profiler``
+trace) and writes it into ``logdir`` as a Chrome trace (open it in
+``chrome://tracing`` or Perfetto).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Any, Iterator, List, Optional
 
@@ -60,3 +63,22 @@ class StepTimer:
             f"{self.name}_p90_s": float(np.percentile(d, 90)),
             f"{self.name}_min_s": float(d.min()),
         }
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str, enabled: bool = True) -> Iterator[None]:
+    """A ``torch.profiler`` region over the host and, where there is one,
+    the card; on exit its Chrome trace is written to
+    ``logdir/trace_<pid>_<ns>.json``."""
+    if not enabled:
+        yield
+        return
+    wanted = {torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA}
+    activities = [a for a in torch.profiler.supported_activities()
+                  if a in wanted]
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
