@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's caption step, its server and its exported and
 compiled programs, its evaluation path, frozen teacher (also in the input-dtype softmax, with its sampled
-beam and ``teacher_generate``), distillation train step and training loop
-once on an NVIDIA GPU.
+beam and ``teacher_generate``), distillation train step, training loop and
+its data- and tensor-parallel layer once on an NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -74,8 +74,9 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    for bit and launch K1 and K2 exactly the layer counts (10 K1; 20 + 6 a
    decode step K2, all 25 steps greedy, 24 beam), nothing else; one
    exported b8 call under ``profile_trace`` must show K1's and K2's
-   kernels; ``save_compiled`` (AOTInductor) at b8 greedy on a ``lively_``
-   copy must give that copy's live rows and the same launches. Exported,
+   kernels; ``save_compiled`` (AOTInductor) at b8 greedy, 10 tokens
+   (``COMPILED_MAX_LEN``), on a ``lively_`` copy must give that copy's
+   live rows and launch the layer counts. Exported,
    compiled and live ms per window are timed in the same run, and K1 and
    K2 through their ``rtvc::`` operators against the direct launch on the
    host (the operators' share of a b1 greedy step);
@@ -144,7 +145,34 @@ PyTorch built for CUDA. Phases, each of which raises on failure:
    launches are checked against the layer counts; each run prints its
    epochs' step ms, first step, host share, checkpoint waits and eval
    time. Then the beam-KD step with the live beam inside it, and the
-   default step's peak memory with and without ``remat_encoder``.
+   default step's peak memory with and without ``remat_encoder``;
+10. parallel: ``rtvc_tpu_torch.parallel`` on the one card. (a) Two gloo
+   ranks (``python -m rtvc_tpu_torch.parallel.dryrun`` processes, both
+   on the card) run 3 full-width bf16 steps of the default
+   ``make_train_step`` (dropout and DropPath on) on a global batch of 8,
+   4 rows a rank: each rank's K1, K2, K4, K5, K6 and K9 launches must
+   equal the layer counts, the master weights must be equal across the
+   ranks bit for bit, the losses finite (printed beside one rank's run of
+   the 8 rows). (b) The same in float32 with TF32 off and the teacher cut
+   to 2 CLIP blocks and 2 joint layers, 2 steps, against one rank on the
+   same card, the dp ranks taking step 2 from the one rank's state after
+   step 1: each step's losses, gradient norm and gradient leaves, the
+   BatchNorm statistics and the final master weights within
+   ``PAR_LIMITS`` (``compare_runs``). (c) tp = 2, one
+   float32 step: each rank holds half the vocab rows of the student's
+   projection and embedding and the teacher's output head and word
+   embeddings; the same limits against tp = 1. (d) ``BatchCaptionServer``
+   on ``make_mesh((2, 1), devices=[card, card])``, greedy with
+   ``vocab_int8``: 8 windows form one batch, split 4 + 4 over the two
+   replicas, whose rows equal ``make_caption_step``'s at batch 4 on each
+   half bit for bit, and K1, K2 and K3 launch the layer counts on each
+   replica. (e) A rank that owns the card takes NCCL
+   (``initialize_distributed``'s choice, where (a)-(c) take gloo) and
+   its one-rank group runs the mesh's all-reduce, all-gather and
+   broadcast on bf16 and float32, exactly. Each multi-rank
+   job has a timeout and a failed rank fails the phase; the phase prints
+   ms a step at dp = 2 against one rank and each rank's time from process
+   start to its first step, beside the card's name and power limit.
 
 It prints the kernels' record as one JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -208,6 +236,10 @@ CAPTION_LEN = 40               # teacher-forced caption tokens
 TAPS = (0, 6, 12, 18)          # CLIP blocks tapped for distillation
 BEAM_BATCH, BEAMS, BEAM_STEPS = 2, 4, 15
 SERVE_BEAM = 3                 # the student beam's k in the serve phase
+# tokens the compiled package decodes: AOTInductor compiles the unrolled
+# decode, and at MAX_LEN its save_compiled took 167-315 s on an H100
+# host, a third of the script's time limit
+COMPILED_MAX_LEN = 10
 SERVER_WAIT_MS = 50.0          # the server's linger: 8 submits form 1 batch
 HTTP_ROUNDS = 3                # bursts of 8 concurrent HTTP requests
 # the eval phase's MSRVTT-format test split: 20 clips of 12 frames at
@@ -1240,6 +1272,13 @@ def wrappers() -> dict:
             "dw3x3_wgrad": depthwise.dw3x3_wgrad}
 
 
+def wrapper_paths() -> dict:
+    """Each kernel's wrapper as ``module:function``, for the dry-run
+    worker to count in its ranks (a job's ``kernels``)."""
+    return {k: f"{fn.__module__}:{fn.__name__}"
+            for k, fn in wrappers().items()}
+
+
 def counters() -> dict:
     """Each kernel's (wrapper, its count's attribute), by the kernel's name
     in KERNELS: K4n and K8n count on K4's and K8's wrappers, the stats-only
@@ -1775,8 +1814,9 @@ def export_phase(dev, student, windows_cpu) -> dict:
     the layer counts (greedy: all MAX_LEN decode steps; beam: MAX_LEN - 1)
     and nothing else; a ``profile_trace`` of one exported b8 call names
     K1's and K2's kernels. Then ``save_compiled`` at b8 greedy on a
-    ``lively_`` copy: its rows equal that copy's live step, its launches
-    the exported program's. Times (CUDA events) beside the live step's."""
+    ``lively_`` copy, COMPILED_MAX_LEN tokens: its rows equal that copy's
+    live step's, its launches the layer counts. Times (CUDA events)
+    beside the live step's."""
     import tempfile
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="rtvc_export_") as tmp:
@@ -1912,14 +1952,15 @@ def export_runs(dev, student, windows, tmp: str) -> dict:
     path = os.path.join(tmp, f"compiled_b{WINDOWS}.pt2")
     t0 = time.perf_counter()
     # the package's C++ wrapper at -O0: ~167 s of save_compiled instead of
-    # ~307 s at Inductor's default -O1, at ~5.0 instead of ~3.3 ms a window
-    # (PERF.md §6); it keeps the whole script near half its time limit
+    # ~307 s at Inductor's default -O1 (25 tokens), at ~5.0 instead of
+    # ~3.3 ms a window (PERF.md §6); it keeps the whole script near half
+    # its time limit
     with torch._inductor.config.patch(
             {"aot_inductor.compile_wrapper_opt_level": "O0"}):
         export.save_compiled(path, lively, export.serving_variables(lively),
                              batch=WINDOWS, window=FRAMES,
-                             frame_shape=frame_shape, max_len=MAX_LEN,
-                             device=dev)
+                             frame_shape=frame_shape,
+                             max_len=COMPILED_MAX_LEN, device=dev)
     compile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     fn, meta = export.load_compiled(path)
@@ -1930,27 +1971,31 @@ def export_runs(dev, student, windows, tmp: str) -> dict:
         got = fn(lively_vars, windows)
         torch.cuda.synchronize()
         launched = read_counts()
-    ref = make_caption_step(lively, max_len=MAX_LEN)(windows)
+    ref = make_caption_step(lively, max_len=COMPILED_MAX_LEN)(windows)
     if not torch.equal(got, ref):
         raise AssertionError(f"compiled b8: rows differ from the lively "
                              f"student's live step at "
                              f"{int((got != ref).sum())} ids")
-    check_launches("compiled b8", launched, want[0])
+    want_c = caption_launches(student, COMPILED_MAX_LEN)
+    check_launches("compiled b8", launched, want_c)
     with torch.inference_mode():
         ms_c = cuda_ms(lambda: fn(lively_vars, windows), reps=5,
                        warmup=2) / WINDOWS
-    ms_l = cuda_ms(lambda: make_caption_step(lively, max_len=MAX_LEN)(
-        windows), reps=5, warmup=2) / WINDOWS
+    ms_l = cuda_ms(lambda: make_caption_step(
+        lively, max_len=COMPILED_MAX_LEN)(windows), reps=5,
+        warmup=2) / WINDOWS
     result["compiled"] = dict(
+        max_len=COMPILED_MAX_LEN,
         compile_s=compile_s, load_s=load_s, bytes=os.path.getsize(path),
         ms_per_window_b8=ms_c, lively_live_ms_per_window_b8=ms_l,
         live_decode_steps_b8=decode_steps(ref, sep),
         distinct_rows=len({tuple(r) for r in ref.tolist()}))
-    log(f"  compiled b8 (lively_): save_compiled {compile_s:.1f} s, load "
+    log(f"  compiled b8 (lively_, {COMPILED_MAX_LEN} tokens): "
+        f"save_compiled {compile_s:.1f} s, load "
         f"{load_s:.2f} s, {result['compiled']['bytes']} bytes; rows equal "
         f"the live step's ({result['compiled']['distinct_rows']} distinct); "
-        f"launches {want[0]['window_attention']} K1, "
-        f"{want[0]['layer_norm']} K2; ms/window {ms_c:.3f} against live "
+        f"launches {want_c['window_attention']} K1, "
+        f"{want_c['layer_norm']} K2; ms/window {ms_c:.3f} against live "
         f"{ms_l:.3f}")
     del lively
     return result
@@ -3322,6 +3367,370 @@ def loop_steps_phase(dev, template, teacher, beam_kd) -> dict:
     out["remat_loss_rel_gap"] = gap
     return out
 
+# ---------------------------------------------------------------------------
+# phase 10: the parallel layer
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3                  # dp = 2 steps at full width
+PAR_TIMEOUT = 300.0            # each multi-rank job's limit, in seconds
+# dp = 2 (or tp = 2) against one rank in float32, compare_runs' worst
+# differences: kl/ce/total and grad_norm relative; every step's gradient
+# leaves of max(leaf max, GRAD_FLOOR x largest) (dp = 2 runs every GEMM
+# at 4 rows where one rank runs 8, and the encoder's train-mode
+# BatchNorms amplify the sums' order: 1.77e-5 read on an H100); the
+# BatchNorm statistics of max(1, max|x|), 1e-5; the final master weights
+# as tests/test_torch_train_loop.py holds them, 1e-4 of max(1, max|w|),
+# less the elements whose gradients differ in sign between the runs at
+# some step: at most 1% of them (signs differ only where a gradient is
+# at the noise), each within Adam's reach of the other run ("moved", in
+# units of 2 steps lr: two runs from one start, each moving an element at
+# most (1 + 0.004) lr a step in its first three steps)
+PAR_LIMITS = {"losses": 1e-5, "grad_norm": 1e-4, "grad": 1e-4,
+              "bn": 1e-5, "params": 1e-4, "undecided": 1e-2,
+              "moved": 1.01}
+# the four weights tp splits over the vocab
+TP_SPLIT = {"student": ("linear.weight", "embed.weight"),
+            "teacher": ("textual.output.weight",
+                        "textual.embedding.words.weight")}
+
+
+def par_batches(batch: int, steps: int) -> dict:
+    """The full-width step's global batches, as the dry-run worker makes
+    them from a seed: frames [batch, 6, 224, 224, 3], 40-token captions."""
+    from rtvc_tpu_torch.config import cfg
+    return dict(seed=SEED + 21, n=steps, batch=batch, frames=FRAMES,
+                size=224, caption_len=CAPTION_LEN,
+                vocab=cfg.student.vocab_size)
+
+
+def rounding_noise(student, name: str, shape):
+    """The elements of a trained entry whose gradient is zero in exact
+    arithmetic, where each run's rounding noise, which Adam turns into
+    steps of ±lr, decides the value at every step: the key bias of every
+    attention (the softmax is shift-invariant in it), the MLP output bias
+    of every stage but the last (it feeds only the next stage's 1x1 conv
+    and its train-mode BatchNorm), and the running means of those
+    BatchNorms."""
+    import numpy as np
+    mask = np.zeros(shape, bool)
+    parts = name.split(".")
+    enc = student.image_encoder["model"]
+    last = len(enc.stages) - 1
+    if name.endswith("in_proj_bias"):
+        d = shape[0] // 3
+        mask[d:2 * d] = True
+    elif name.endswith("attn.qkv.bias"):
+        heads = enc.stages[int(parts[3])]["blocks"][0].attn.num_heads
+        mask.reshape(heads, 3, -1)[:, 1] = True
+    elif name.endswith("mlp.fc2.bias") and int(parts[3]) < last:
+        mask[:] = True
+    elif (name.endswith("downsample.conv1.bn.running_mean")
+          and int(parts[3]) > 1):
+        mask[:] = True
+    return mask
+
+
+def compare_runs(got: dict, want: dict, student, lr: float) -> dict:
+    """The worst differences of two dry-run ``step`` jobs' results, as
+    tests/test_torch_train_loop.py compares two runs, every one less the
+    :func:`rounding_noise` elements:
+
+    - ``losses``: kl, ce and total of each step, relative to max(1,
+      |want|); ``grad_norm`` the same;
+    - ``grad``: each step's gradient leaves, of max(the leaf's max,
+      GRAD_FLOOR × the largest leaf's max);
+    - ``params``: the final master weights, of max(1, max|want|), less
+      the elements whose gradients differ in sign between the runs at
+      some step, where Adam moves each by ±lr on the sign of the noise:
+      ``undecided`` is their share, and ``moved`` their worst difference
+      in units of 2 · steps · lr (each run moves an element at most about
+      lr a step from the same start);
+    - ``bn``: the BatchNorm statistics at the end, of max(1, max|want|).
+
+    ``worst_grad`` and ``worst_params`` name the step and leaf of the
+    worst ``grad``, and the leaf of the worst ``params``."""
+    import torch
+
+    def rel(a, b):
+        return abs(a - b) / max(1.0, abs(b))
+
+    out = {"losses": max(rel(a[k], b[k]) for a, b in
+                         zip(got["steps"], want["steps"])
+                         for k in ("kl", "ce", "total")),
+           "grad_norm": max(rel(a["grad_norm"], b["grad_norm"]) for a, b in
+                            zip(got["steps"], want["steps"])),
+           "grad": 0.0, "worst_grad": None, "params": 0.0, "worst_params": None, "undecided": 0.0,
+           "moved": 0.0, "bn": 0.0}
+    steps = len(want["grads"])
+    tops = [max(float(g.abs().max()) for g in step.values())
+            for step in want["grads"]]
+    n_undecided = n_kept = 0
+    for name, v in want["params"].items():
+        keep = ~torch.from_numpy(rounding_noise(student, name,
+                                                tuple(v.shape)))
+        if not keep.any():
+            continue
+        undecided = torch.zeros_like(keep)
+        for t, (mine, ref) in enumerate(zip(got["grads"], want["grads"])):
+            a, b = mine[name], ref[name]
+            scale = max(float(b[keep].abs().max()), GRAD_FLOOR * tops[t])
+            err = float((a - b)[keep].abs().max()) / scale
+            if err > out["grad"]:
+                out["grad"], out["worst_grad"] = err, (t, name)
+            undecided |= torch.sign(a) != torch.sign(b)
+        undecided &= keep
+        w = got["params"][name]
+        decided = keep & ~undecided
+        if decided.any():
+            err = float((w - v)[decided].abs().max()) / max(
+                1.0, float(v.abs().max()))
+            if err > out["params"]:
+                out["params"], out["worst_params"] = err, name
+        if undecided.any():
+            out["moved"] = max(out["moved"], float(
+                (w - v)[undecided].abs().max()) / (2 * steps * lr))
+        n_undecided += int(undecided.sum())
+        n_kept += int(keep.sum())
+    out["undecided"] = n_undecided / max(1, n_kept)
+    for name, b in want["bn"].items():
+        keep = ~torch.from_numpy(rounding_noise(student, name,
+                                                tuple(b.shape)))
+        if keep.any():
+            out["bn"] = max(out["bn"], float(
+                (got["bn"][name] - b)[keep].abs().max())
+                / max(1.0, float(b.abs().max())))
+    return out
+
+
+def par_compare(label: str, got: dict, want: dict, student,
+                lr: float) -> dict:
+    errs = compare_runs(got, want, student, lr)
+    log(f"  {label}: worst differences {json.dumps(errs)} (limits "
+        f"{json.dumps(PAR_LIMITS)})")
+    bad = {k: v for k, v in errs.items()
+           if k in PAR_LIMITS and not v <= PAR_LIMITS[k]}
+    if bad:
+        raise AssertionError(f"{label}: over the limit {bad}")
+    return errs
+
+
+def par_timing(label: str, ranks: list, one: dict, smi: str) -> dict:
+    """ms a step (wall, synchronised) of each rank against the one-rank
+    run, and each rank's time from process start to its first step."""
+    import statistics
+    out = {"dp2_step_ms": [r["step_ms"] for r in ranks],
+           "dp1_step_ms": one["step_ms"],
+           "collective_ms": [r["collective_ms"] for r in ranks],
+           "start_to_first_step_s": [r["start_to_first_step_s"]
+                                     for r in ranks]}
+    log(f"  {label}: ms a step dp=2 ranks "
+        f"{[[round(t, 2) for t in r['step_ms']] for r in ranks]}, one rank "
+        f"{[round(t, 2) for t in one['step_ms']]} (medians "
+        f"{[round(statistics.median(r['step_ms']), 2) for r in ranks]} vs "
+        f"{round(statistics.median(one['step_ms']), 2)}); process start to "
+        f"first step {[round(t, 2) for t in out['start_to_first_step_s']]}"
+        f" s; collectives alone, ms (gloo, the ranks on one card) "
+        f"{out['collective_ms']} | {smi}")
+    return out
+
+
+def parallel_phase(dev, smi: str) -> dict:
+    """Phase 10 on the one card: (a) dp = 2 full-width bf16 train steps on
+    two gloo ranks, (b) dp = 2 against one rank in float32, (c) tp = 2
+    against tp = 1, (d) the dp caption server, (e) a one-rank NCCL group
+    carrying the mesh's collectives."""
+    import os
+    import shutil
+    import tempfile
+    import types
+    import numpy as np
+    import torch
+    from rtvc_tpu_torch.config import GITConfig, cfg, clip_vit_l14_config
+    from rtvc_tpu_torch.models import student as student_lib
+    from rtvc_tpu_torch.parallel import dryrun, make_mesh
+    from rtvc_tpu_torch.serving import (BatchCaptionServer,
+                                        make_caption_step, with_vocab_w8)
+    from rtvc_tpu_torch.tokenization import BertWordPieceTokenizer
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="rtvc_parallel_")
+    out = {"device": smi}
+    launches = dict(KERNEL_ZERO)
+    try:
+        # (a) dp = 2, full width, bf16 over float32 masters, dropout on
+        job = {"kind": "step", "models": "full", "seed": SEED + 20,
+               "dtype": "bfloat16", "lr": cfg.train.lr, "steps": PAR_STEPS,
+               "device": str(dev), "threads": 3, "kernels": wrapper_paths(),
+               "batches": par_batches(WINDOWS, 1)}
+        ranks = dryrun.spawn(dict(job, mesh=(2, 1)), 2, work, PAR_TIMEOUT)
+        one = dryrun.run_job(job)
+        # the full-width student (the layer counts, the comparisons' masks
+        # and the server of (d)); the teacher's layer counts from its config
+        student = student_lib.random_init_(
+            student_lib.student_from_config(cfg, device="cpu"),
+            torch.Generator().manual_seed(SEED + 22))
+        teacher = types.SimpleNamespace(config=GITConfig(
+            num_layers=cfg.teacher.num_layers, clip=clip_vit_l14_config()))
+        per_step = train_launches_per_step(student, teacher)
+        want = {k: n * PAR_STEPS for k, n in per_step.items()}
+        for r, rank in enumerate(ranks):
+            check_launches(f"dp=2 rank {r}", rank["launches"], want)
+            for k, n in rank["launches"].items():
+                launches[k] += n
+        if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+            raise AssertionError(f"dp=2: two ranks sharing {dev} took "
+                                 f"{[r['backend'] for r in ranks]}")
+        same = all(torch.equal(w, ranks[1]["params"][n])
+                   for n, w in ranks[0]["params"].items())
+        if not same:
+            raise AssertionError("dp=2: the ranks' master weights differ")
+        losses = [[s["total"] for s in r["steps"]] for r in ranks]
+        if not all(map(math.isfinite, sum(losses, []))):
+            raise AssertionError(f"dp=2: non-finite losses {losses}")
+        log(f"  (a) dp=2 full-width bf16, {PAR_STEPS} steps of 8 rows (4 a "
+            f"rank): total losses ranks {losses}, one rank "
+            f"{[s['total'] for s in one['steps']]}; launches a rank "
+            f"{ranks[0]['launches']} = layer counts x {PAR_STEPS}; masters "
+            f"equal across ranks bit for bit")
+        out["a"] = dict(losses=losses,
+                        one_rank_losses=[s["total"] for s in one["steps"]],
+                        launches=[r["launches"] for r in ranks],
+                        **par_timing("(a) bf16", ranks, one, smi))
+        del one, ranks
+
+        # (b) dp = 2 against one rank, float32, TF32 off, depth-cut teacher.
+        # The one rank's BatchNorms take the dp path's statistics (flax's
+        # E[x²] - E[x]² from summed moments, over a group of itself), so
+        # only the order of the sums differs (on an H100, against the
+        # plain one rank, whose F.batch_norm centres first, the gradients
+        # moved 2.4e-5 of their scale where these move 1.8e-5). The dp
+        # ranks take step 2 from the one rank's state after step 1: run
+        # free, Adam's ±lr steps on the noise-signed elements of step 1
+        # move every later gradient (29% of the elements beyond 1e-4 of
+        # their leaf's scale at step 2, up to 9.2%, on an H100)
+        states = os.path.join(work, "one_rank_state")
+        job = dict(job, models="full_cut", dtype="float32", tf32=False,
+                   steps=2, dropout=None, batches=par_batches(WINDOWS, 2))
+        one = dryrun.spawn(dict(job, mesh=(1, 1), bn_sums=True,
+                                save_states=states), 1, work,
+                           PAR_TIMEOUT)[0]
+        ranks = dryrun.spawn(dict(job, mesh=(2, 1), load_states=states), 2,
+                             work, PAR_TIMEOUT)
+        out["b"] = dict(errors=[par_compare(f"(b) f32 dp=2 rank {r} vs one",
+                                            rank, one, student, job["lr"])
+                                for r, rank in enumerate(ranks)],
+                        **par_timing("(b) f32", ranks, one, smi))
+        del one, ranks
+
+        # (c) tp = 2 against tp = 1: one float32 step (dp = 1: the
+        # BatchNorms of both runs centre first)
+        job = dict(job, steps=1)
+        ranks = dryrun.spawn(dict(job, mesh=(1, 2)), 2, work, PAR_TIMEOUT)
+        one = dryrun.run_job(job)
+        half = cfg.student.vocab_size // 2
+        for r, rank in enumerate(ranks):
+            shapes = {"student": rank["local_shapes"],
+                      "teacher": rank["teacher_local_shapes"]}
+            rows = {n: shapes[m][n][0] for m, names in TP_SPLIT.items()
+                    for n in names}
+            if set(rows.values()) != {half}:
+                raise AssertionError(f"tp=2 rank {r}: vocab rows {rows}")
+        out["c"] = dict(errors=[par_compare(f"(c) f32 tp=2 rank {r} vs one",
+                                            rank, one, student, job["lr"])
+                                for r, rank in enumerate(ranks)],
+                        tp2_step_ms=[r["step_ms"] for r in ranks],
+                        tp1_step_ms=one["step_ms"])
+        log(f"  (c) tp=2: each rank holds {half} vocab rows of "
+            f"{sorted(n for v in TP_SPLIT.values() for n in v)}; step ms "
+            f"{out['c']['tp2_step_ms']} vs tp=1 {out['c']['tp1_step_ms']}")
+        del one, ranks
+
+        # (d) the dp caption server: two replicas on the card, vocab_int8
+        student = student.to(dev).to(cfg.dtype).eval()
+        windows = make_windows(torch.Generator().manual_seed(SEED + 23))
+        wins = windows.numpy()
+        server = BatchCaptionServer(
+            student, BertWordPieceTokenizer(), max_batch=WINDOWS,
+            buckets=(WINDOWS,), max_wait_ms=SERVER_WAIT_MS, max_len=MAX_LEN,
+            frame_shape=FRAME_HW + (3,), window=FRAMES, vocab_int8=True,
+            mesh=make_mesh((2, 1), devices=[dev, dev]), warmup=False)
+        per_replica = []
+
+        def counted(i, step):
+            def run(frames):
+                torch.cuda.synchronize()
+                reset_counts()
+                rows = step(frames)
+                torch.cuda.synchronize()
+                per_replica.append((i, counts(), rows.cpu()))
+                return rows
+            return run
+
+        server._steps = [counted(i, st) for i, st in enumerate(server._steps)]
+        try:
+            server.warmup()
+            per_replica.clear()
+            t0 = time.perf_counter()
+            futs = [server.submit(w, stream_id=f"cam{i}")
+                    for i, w in enumerate(wins)]
+            rows = [f.tokens(timeout=300) for f in futs]
+            serve_s = time.perf_counter() - t0
+            sizes = list(server.batch_sizes)
+        finally:
+            server.close()
+        if sizes[-1:] != [WINDOWS]:
+            raise AssertionError(f"dp server: 8 submits formed {sizes}")
+        step4 = make_caption_step(with_vocab_w8(student), max_len=MAX_LEN,
+                                  vocab_int8=True)
+        halves = [step4(windows[i * 4:(i + 1) * 4].to(dev)).cpu()
+                  for i in range(2)]
+        from rtvc_tpu_torch.serving import truncate_at_sep
+        direct = torch.cat(halves).numpy()
+        bad = [i for i, (r, d) in enumerate(zip(rows, direct))
+               if not np.array_equal(r, truncate_at_sep(d))]
+        if bad:
+            raise AssertionError(f"dp server rows {bad} differ from "
+                                 f"make_caption_step's at b4")
+        replica_launches = {}
+        for i, launched, got in per_replica:
+            if not torch.equal(got, halves[i]):
+                raise AssertionError(f"replica {i}'s rows differ")
+            calls = decode_steps(got, cfg.student.sep_token_id)
+            want = caption_launches(student, calls)
+            want["w8_matmul"] = calls
+            check_launches(f"dp server replica {i}", launched, want)
+            replica_launches[i] = launched
+            for k, n in launched.items():
+                launches[k] += n
+        if sorted(replica_launches) != [0, 1]:
+            raise AssertionError(f"replicas run {sorted(replica_launches)}")
+        out["d"] = dict(batch_sizes=sizes, serve_s=serve_s,
+                        replica_launches=replica_launches)
+        log(f"  (d) dp server, 2 replicas on {dev}, vocab_int8: one batch "
+            f"of 8 split 4 + 4 in {serve_s * 1e3:.1f} ms; rows equal "
+            f"make_caption_step at b4 on each half bit for bit; launches "
+            f"per replica {replica_launches}")
+        del student, server
+
+        # (e) NCCL: a one-rank group carries the collectives
+        nccl = dryrun.spawn({"kind": "nccl", "device": str(dev),
+                             "mesh": (1, 1)}, 1, work, PAR_TIMEOUT)[0]
+        if nccl["backend"] != "nccl":
+            raise AssertionError(f"a rank that owns {dev} took the "
+                                 f"{nccl['backend']} backend")
+        out["e"] = nccl
+        log(f"  (e) NCCL one-rank group (the backend initialize_distributed"
+            f" picks for a rank that owns its card): all-reduce, all-gather "
+            f"(all_gather_into_tensor), broadcast exact on bf16 and f32 "
+            f"({nccl['bfloat16_ms']:.3f} / "
+            f"{nccl['float32_ms']:.3f} ms for the three, first call) | {smi}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3407,7 +3816,10 @@ def main(argv=None) -> int:
         f"resume, beam-KD cache, CLI (train phase took "
         f"{time.perf_counter() - t0:.1f} s)")
     lp = loop_phase(dev)
-    log(f"[loop] loop phase took {lp['seconds']:.1f} s")
+    log(f"[parallel] dp=2 and tp=2 train steps on two gloo ranks of the "
+        f"card, the dp server, NCCL (loop phase took {lp['seconds']:.1f} s)")
+    pp = parallel_phase(dev, smi)
+    log(f"[parallel] parallel phase took {pp['seconds']:.1f} s")
 
     # the row per kernel: its largest error over all cases; its times at
     # its headline bf16 case (the main path's heaviest, but K2 at the
@@ -3437,7 +3849,7 @@ def main(argv=None) -> int:
                    + xp["launches"][name]
                    + ev["launches"][name] + te["launches"][name]
                    + gn["launches"][name] + tr["launches"][name]
-                   + lp["launches"][name],
+                   + lp["launches"][name] + pp["launches"][name],
                    max_abs_err=max(r["max_abs_err"] for r in mine),
                    ms=head["ms"], plain_ms=head["plain_ms"],
                    bound_ms=head["bound_us"] / 1e3,
@@ -3468,7 +3880,7 @@ def main(argv=None) -> int:
                            cases=records, grad_checks=extra,
                            native_probe=probe, slice=sl,
                            serve=sv, export=xp, eval=ev, teacher=te, generate=gn,
-                           train=tr, loop=lp), f,
+                           train=tr, loop=lp, parallel=pp), f,
                       indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

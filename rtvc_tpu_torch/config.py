@@ -31,12 +31,14 @@ jax. A test holds every field here equal to its JAX counterpart:
   the teacher, the train loop and evaluation are built from: ``data``,
   ``callback``, ``logger``, ``student``, ``teacher``, ``train``,
   ``wandb``, ``tpu.compute_dtype``, ``tpu.quantize_teacher``,
-  ``tpu.remat_encoder`` and ``seed`` (the random inits, the caption
-  choice of the loaders, the shuffle and the dropout draws);
+  ``tpu.remat_encoder``, the mesh (``tpu.mesh_shape``, ``tpu.mesh_axes``,
+  ``tpu.multihost``: ``rtvc_tpu_torch.parallel``) and ``seed`` (the
+  random inits, the caption choice of the loaders, the shuffle and the
+  dropout draws);
 - the reference-style access of ``rtvc_tpu/config.py``:
   ``Config.__getitem__`` (``cfg["TRAIN"]["BATCH_SIZE"]``, read-only
   :class:`_DictView` s with the reference's UPPER keys) and
-  :func:`from_dict`; the three ported ``tpu`` fields sit on ``Config``
+  :func:`from_dict`; the six ported ``tpu`` fields sit on ``Config``
   itself and are read and overridden under ``"TPU"`` / ``"tpu"`` as JAX's;
 - not ported: ``tpu.steps_per_dispatch`` (a scan over batches that
   measured slower on the TPU; CUDA graphs are the GPU's analogue).
@@ -219,6 +221,10 @@ class Config:
     compute_dtype: str = "bfloat16"      # TpuConfig.compute_dtype
     quantize_teacher: bool = False       # TpuConfig.quantize_teacher
     remat_encoder: bool = False          # TpuConfig.remat_encoder
+    # (dp, tp); -1 = all remaining ranks          TpuConfig.mesh_shape
+    mesh_shape: Tuple[int, ...] = (-1, 1)
+    mesh_axes: Tuple[str, ...] = ("dp", "tp")   # TpuConfig.mesh_axes
+    multihost: bool = False              # TpuConfig.multihost
     seed: int = 5                        # Config.seed
 
     @property
@@ -257,7 +263,8 @@ class Config:
 
 
 # the fields of JAX's ``Config.tpu`` that the port keeps on ``Config``
-TPU_FIELDS = ("compute_dtype", "quantize_teacher", "remat_encoder")
+TPU_FIELDS = ("compute_dtype", "quantize_teacher", "remat_encoder",
+              "mesh_shape", "mesh_axes", "multihost")
 
 
 class _DictView(dict):

@@ -18,9 +18,8 @@ semantics (reference src/utils/dataloader.py:35-114):
   + collate, optionally over a spawn process pool); the consumer copies
   each batch to the device and runs ``clip_preprocess`` there, once per
   batch, while the producer works on the next; a consumer that leaves a
-  pass early stops and reaps its producer.
-
-Not ported yet: the ``mesh`` placement (ROADMAP Queue 1 item 17).
+  pass early stops and reaps its producer. With a ``mesh`` it hands out
+  this rank's dp rows of each batch, on the rank's device.
 """
 
 from __future__ import annotations
@@ -189,7 +188,12 @@ class DeviceLoader:
       captions are still chosen in the parent;
     - ``host_slice=(start, stop)``: ``batch_size`` is the global batch and
       this loader yields rows ``[start:stop)`` of each global batch (needs
-      ``drop_last``, so that every host runs the same number of steps).
+      ``drop_last``, so that every host runs the same number of steps);
+    - ``mesh`` (``parallel.make_mesh`` over the ranks of a process group):
+      each batch's rows are cut to this rank's dp share before the copy
+      and the preprocess (``parallel.shard_batch``: ``frames``,
+      ``caption`` and the id lists alike), on the rank's device, which
+      replaces ``device``; a batch that does not split over dp raises.
 
     ``wait_s`` is the time the consumer spent blocked on the producer's
     queue during the latest pass.
@@ -201,10 +205,11 @@ class DeviceLoader:
                  preprocess: bool = True, prefetch_depth: int = 2,
                  drop_last: bool = False, num_workers: int = 0,
                  host_slice: Optional[tuple] = None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DeviceLoader(mesh=...) is not ported yet (ROADMAP Queue 1 "
-                "item 17)")
+        if mesh is not None and not mesh.distributed \
+                and mesh.shape.get("dp", 1) > 1:
+            raise ValueError("DeviceLoader(mesh=...) feeds one rank of a "
+                             "process group; this mesh spans devices of one "
+                             "process")
         if host_slice is not None and not drop_last:
             raise ValueError("host_slice (multi-host) requires drop_last: "
                              "every global batch window must be full so all "
@@ -219,7 +224,8 @@ class DeviceLoader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.host_slice = host_slice
-        self.device = device
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else device
         self.wait_s = 0.0
         self._pool = None
         self._epoch = 0
@@ -332,15 +338,18 @@ class DeviceLoader:
                     if errbox:
                         raise errbox[0]
                     return
+                if self.mesh is not None:
+                    from ..parallel.mesh import shard_batch
+                    batch = shard_batch(batch, self.mesh)
                 out = dict(batch)
-                frames = torch.from_numpy(batch["frames"]).to(self.device)
+                frames = torch.as_tensor(batch["frames"]).to(self.device)
                 if self.preprocess:
                     b, f = frames.shape[:2]
                     proc = clip_preprocess(
                         frames.reshape((-1,) + frames.shape[2:]))
                     frames = proc.reshape((b, f) + proc.shape[1:])
                 out["frames"] = frames
-                out["caption"] = torch.from_numpy(batch["caption"]).to(
+                out["caption"] = torch.as_tensor(batch["caption"]).to(
                     self.device)
                 yield out
         finally:

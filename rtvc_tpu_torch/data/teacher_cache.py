@@ -317,17 +317,41 @@ class CacheReplayFeed:
       ``teacher_kd_logits`` or ``teacher_kd_vals`` / ``teacher_kd_idx``.
 
     On a miss nothing is added: the consumer runs the live teacher. A
-    consumer that abandons the iteration stops and reaps the producer."""
+    consumer that abandons the iteration stops and reaps the producer.
+
+    ``mesh`` (``parallel.make_mesh`` over the ranks of a process group,
+    dp > 1), as JAX's feed shards its hits over dp: each hit's rows are
+    cut to this rank's dp share before the copy, on the mesh's device,
+    where they split evenly over dp; the keys stay the batch's. A loader
+    that already yields this rank's rows (a ``DeviceLoader`` with
+    ``host_slice`` or ``mesh``) keeps its hits whole, as JAX leaves a
+    multi-process run's host-local rows."""
 
     def __init__(self, loader, cache: Optional[TeacherLogitsCache] = None,
                  depth: int = 2,
                  beam_cache: Optional[TeacherBeamCache] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.loader = loader
         self.cache = cache
         self.beam_cache = beam_cache
         self.depth = depth
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
+        local = (getattr(loader, "host_slice", None) is not None
+                 or getattr(loader, "mesh", None) is not None)
+        self._dp = (mesh.shape.get("dp", 1)
+                    if mesh is not None and mesh.distributed and not local
+                    else 1)
+
+    def _rows(self, x: np.ndarray) -> np.ndarray:
+        """This rank's dp share of a hit's rows (all of them where they do
+        not split evenly)."""
+        if self._dp == 1 or x.shape[0] % self._dp:
+            return x
+        per = x.shape[0] // self._dp
+        i = self.mesh.index("dp")
+        return x[i * per:(i + 1) * per]
 
     def __iter__(self):
         on_card = self.device.type == "cuda"
@@ -348,7 +372,7 @@ class CacheReplayFeed:
             return False
 
         def upload(x: np.ndarray) -> torch.Tensor:
-            t = torch.from_numpy(np.ascontiguousarray(x))
+            t = torch.from_numpy(np.ascontiguousarray(self._rows(x)))
             if not on_card:
                 return t
             with torch.cuda.stream(stream):

@@ -68,13 +68,26 @@ def _nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy_loss(student_logits: torch.Tensor, targets: torch.Tensor,
-                       ignore_index: int = 0) -> torch.Tensor:
+                       ignore_index: int = 0,
+                       dp_group=None) -> torch.Tensor:
     """Shifted CE against the ground truth: predict ``y[:, 1:]`` from
-    ``logits[:, :-1]``, ignoring id ``ignore_index``, mean over the rest."""
+    ``logits[:, :-1]``, ignoring id ``ignore_index``, mean over the rest.
+
+    With ``dp_group`` (the dp ranks of a mesh, each holding its rows of
+    the global batch) the count of valid tokens is the global one, and the
+    local sum is scaled by the number of ranks: the mean of the ranks'
+    losses, and of their gradients, is the global token mean JAX takes
+    over its dp-sharded batch, whatever each rank's own count."""
     tgt = targets[:, 1:]
     nll = _nll(student_logits[:, :-1], tgt)
     mask = (tgt != ignore_index).float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    ranks = 1
+    if dp_group is not None:
+        from .parallel.mesh import all_reduce_, group_size
+        count = all_reduce_(count.detach().clone(), dp_group)
+        ranks = group_size(dp_group)
+    return (nll * mask).sum() * ranks / torch.clamp(count, min=1.0)
 
 
 def fmap_distillation_loss(student_proj_means: Sequence[torch.Tensor],
@@ -140,9 +153,12 @@ def distillation_losses(
     student_hidden_proj: Optional[Sequence[torch.Tensor]] = None,
     teacher_hidden: Optional[Sequence[torch.Tensor]] = None,
     teacher_prefix_len: int = 1542,
+    dp_group=None,
 ) -> Dict[str, torch.Tensor]:
     """Every requested loss and ``total``, the weighted sum. A weighted loss
-    whose inputs are missing raises."""
+    whose inputs are missing raises. ``dp_group``: see
+    :func:`cross_entropy_loss`; the other losses are means over equal row
+    counts, whose mean over the ranks is already the global one."""
     w = weights
     out: Dict[str, torch.Tensor] = {}
     if w.kd_source == "beam_consensus":
@@ -158,7 +174,8 @@ def distillation_losses(
         _require(teacher_logits is not None, "kl", "teacher_logits")
         out["kl"] = kl_divergence_loss(student_logits, teacher_logits,
                                        w.temperature)
-    out["ce"] = cross_entropy_loss(student_logits, targets)
+    out["ce"] = cross_entropy_loss(student_logits, targets,
+                                   dp_group=dp_group)
     total = w.kl * out["kl"] + w.ce * out["ce"]
     if w.fmap:
         _require(student_proj_means is not None and teacher_cls_taps

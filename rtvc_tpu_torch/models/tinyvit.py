@@ -55,7 +55,17 @@ class BatchNorm2d(nn.Module):
     The running statistics stay float32 buffers whatever dtype the module
     is cast to. ``update_running_stats = False`` (set by the student's
     activation checkpointing for its recompute) normalises as train mode
-    does but leaves the statistics as they are."""
+    does but leaves the statistics as they are.
+
+    ``dp_group`` (set by ``parallel.place_params`` on a mesh with dp > 1)
+    makes train mode take the global batch's statistics, as flax's
+    BatchNorm does under a dp-sharded jit: the float32 per-channel sum,
+    sum of squares and count are summed over the group (their gradients
+    too), the variance is flax's E[x²] - E[x]², and the running
+    statistics update from the global values, the same on every rank.
+    ``nn.SyncBatchNorm`` would update them with the unbiased variance."""
+
+    dp_group = None
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -83,17 +93,42 @@ class BatchNorm2d(nn.Module):
             return F.batch_norm(x, self.running_mean.to(x.dtype),
                                 self.running_var.to(x.dtype), self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if self.dp_group is not None:
+            return self._global_batch_norm(x)
         if self.update_running_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                            correction=0)
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-                self.num_batches_tracked += 1
+                self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        self.num_batches_tracked += 1
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import all_reduce_sum
+
+        xf = x.float()
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c, dtype=torch.float32)
+        local = torch.cat([xf.sum(dim=(0, 2, 3)),
+                           (xf * xf).sum(dim=(0, 2, 3)), count])
+        total = all_reduce_sum(local, self.dp_group)
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = torch.clamp(total[c:2 * c] / n - mean * mean, min=0.0)
+        if self.update_running_stats:
+            with torch.no_grad():
+                self._update_running(mean.detach(), var.detach())
+        shape = (1, c, 1, 1)
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean.view(shape)) * scale.view(shape) \
+            + self.bias.float().view(shape)
+        return y.to(x.dtype)
 
 
 class Conv2dBN(nn.Module):

@@ -56,7 +56,7 @@ from typing import Optional
 import torch
 
 from . import _kernel
-from .dropout import draw_seed, uniform
+from .dropout import draw_seed, sharded_draws, uniform
 
 NEG_INF = -1e30
 
@@ -769,6 +769,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError("dropout_rate > 0 requires a seed or a "
                                  "generator")
             seed = draw_seed(generator)
+        if sharded_draws():
+            # the kernel hashes the local batch index: under dp its mask
+            # would not be the global batch's rows
+            raise NotImplementedError(
+                "flash_attention dropout under data parallelism: the "
+                "in-kernel mask hashes the local batch index, so dp ranks "
+                "would not drop what one process drops for the whole batch")
     else:
         seed = None
     keep_stats = torch.is_grad_enabled() and any(

@@ -14,15 +14,43 @@ so the tests compare distributions. A draw never synchronises the device:
 :func:`dropout` is flax's ``nn.Dropout`` (keep where ``u < 1 - rate``,
 kept values divided by ``1 - rate``); :func:`drop_path` is the JAX
 ``DropPath``: one draw per sample, the whole branch kept or dropped.
+
+Under data parallelism (:func:`global_rows`, entered by the train step on
+a mesh with dp > 1) every draw is made at the global batch's shape, the
+local leading dim times dp, and a rank keeps its own rows: each rank
+draws what one process draws for the whole batch, and dp = 2 drops what
+dp = 1 drops. Every tensor drawn for has the batch (or batch-major
+flattened rows) as its leading dim.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 SEED_BOUND = 2 ** 31 - 1
+
+# (this rank's index, the number of ranks) along dp while a dp step draws
+_ROWS: Optional[Tuple[int, int]] = None
+
+
+@contextlib.contextmanager
+def global_rows(index: int, count: int):
+    """Draw at the global batch's shape and keep rows ``index`` of
+    ``count`` equal parts inside the block."""
+    global _ROWS
+    prev, _ROWS = _ROWS, (int(index), int(count))
+    try:
+        yield
+    finally:
+        _ROWS = prev
+
+
+def sharded_draws() -> bool:
+    """True inside :func:`global_rows` with more than one rank."""
+    return _ROWS is not None and _ROWS[1] > 1
 
 
 def _cpu_generator(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -41,7 +69,18 @@ def draw_seed(generator: Optional[torch.Generator]) -> int:
 
 def uniform(shape: Sequence[int], generator: Optional[torch.Generator],
             device: torch.device) -> torch.Tensor:
-    """float32 U[0, 1) of ``shape`` on ``device``."""
+    """float32 U[0, 1) of ``shape`` on ``device`` (this rank's rows of the
+    global draw inside :func:`global_rows`)."""
+    if sharded_draws():
+        index, count = _ROWS
+        rows = shape[0]
+        full = _uniform((rows * count,) + tuple(shape[1:]), generator, device)
+        return full[index * rows:(index + 1) * rows]
+    return _uniform(shape, generator, device)
+
+
+def _uniform(shape: Sequence[int], generator: Optional[torch.Generator],
+             device: torch.device) -> torch.Tensor:
     if torch.device(device).type == "cpu":
         return torch.rand(shape, generator=_cpu_generator(generator))
     dev_gen = torch.Generator(device=device)

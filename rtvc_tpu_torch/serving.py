@@ -25,8 +25,6 @@ Counterpart of ``rtvc_tpu/serving.py``:
   the evaluation entry points' model load), :func:`server_from_frontend_args`
   and the CLI demo (:func:`simulate_streams`, :func:`main`).
 
-Not ported yet: the ``mesh`` (data-parallel) server.
-
 CLI demo (simulates N streams replaying one clip):
 
     python -m rtvc_tpu_torch.serving clip.mp4 --streams 8 --windows 32
@@ -263,7 +261,19 @@ class BatchCaptionServer:
         (H, W, 3) of incoming uint8 frames; all streams must agree (resize
         on the client side, ``real_time_inference.shrink_frame``).
     vocab_int8:
-        the vocab projection on K3; the int8 pack is made here, once.
+        the vocab projection on K3; the int8 pack is made here, once (for
+        each replica).
+    mesh:
+        optional ``parallel.make_mesh(..., devices=[...])`` over devices of
+        this process, with a ``dp`` axis: the student is copied once to
+        each of its dp devices (a replica per device, the first the
+        student itself where it lies there), ``max_batch`` and every
+        bucket are rounded up to multiples of dp, and each batch is split
+        into dp equal chunks, chunk i run through replica i's caption
+        step and the rows concatenated (rows are independent, so N
+        devices serve ~N× the streams). Replicas on distinct devices run
+        concurrently, one thread each; replicas that share a device run
+        in turn.
     """
 
     def __init__(self, student: StudentCandidateV1, tokenizer: Any, *,
@@ -272,14 +282,24 @@ class BatchCaptionServer:
                  buckets: Optional[Sequence[int]] = None,
                  frame_shape: Tuple[int, int, int] = (224, 224, 3),
                  window: int = 6, warmup: bool = True,
-                 vocab_int8: bool = False):
+                 vocab_int8: bool = False, mesh: Any = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.student = student
         self.tokenizer = tokenizer
         self.vocab_int8 = bool(vocab_int8)
+        self.mesh = mesh
+        self._dp = int(mesh.shape.get("dp", 1)) if mesh is not None else 1
+        if self._dp > 1:
+            from .parallel.mesh import replicate
+            # round max_batch up so the largest bucket splits evenly
+            max_batch = -(-int(max_batch) // self._dp) * self._dp
+            self.replicas = replicate(student, mesh)
+        else:
+            self.replicas = [student]
         if self.vocab_int8:
-            with_vocab_w8(student)
+            for replica in self.replicas:
+                with_vocab_w8(replica)
         self.device = next(student.parameters()).device
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
@@ -287,15 +307,26 @@ class BatchCaptionServer:
         self.beam = int(beam)  # 0 = greedy; K>0 = fixed-shape beam search
         self.buckets = tuple(sorted(buckets)) if buckets else \
             default_buckets(self.max_batch)
+        if self._dp > 1:
+            # every bucket must split evenly over dp
+            self.buckets = tuple(sorted(
+                {-(-b // self._dp) * self._dp for b in self.buckets}))
         if self.buckets[-1] < self.max_batch:
             raise ValueError("largest bucket must cover max_batch")
         self.frame_shape = tuple(frame_shape)
         self.window = int(window)
 
         # [B, W, H, Wd, 3] uint8 -> caption rows, at a bucket's batch size
-        self._step = make_caption_step(
-            student, max_len=self.max_len, beam=self.beam,
-            vocab_int8=self.vocab_int8)
+        # (a replica's: the bucket / dp)
+        self._steps = [make_caption_step(
+            replica, max_len=self.max_len, beam=self.beam,
+            vocab_int8=self.vocab_int8) for replica in self.replicas]
+        self._step = self._steps[0]
+        devices = {str(next(r.parameters()).device) for r in self.replicas}
+        self._pool = None
+        if len(devices) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(max_workers=len(self.replicas))
 
         self._lock = threading.Condition()
         # FIFO arrival with O(1) per-stream replacement; anonymous requests
@@ -323,16 +354,35 @@ class BatchCaptionServer:
 
     # ------------------------------------------------------------------ API
 
-    def _place(self, frames_np: np.ndarray) -> torch.Tensor:
-        """Host batch -> the student's device."""
+    def _place(self, frames_np: np.ndarray):
+        """Host batch -> the student's device, or one chunk on each
+        replica's device."""
+        if self._dp > 1:
+            from .parallel.mesh import shard_batch
+            return shard_batch(frames_np, self.mesh)
         return torch.from_numpy(frames_np).to(self.device)
+
+    def _run(self, frames_np: np.ndarray) -> np.ndarray:
+        """A padded host batch -> its caption rows on the host."""
+        placed = self._place(frames_np)
+        if self._dp == 1:
+            return self._step(placed).cpu().numpy()
+
+        def run(i):
+            return self._steps[i](placed[i]).cpu().numpy()
+
+        if self._pool is not None:
+            parts = list(self._pool.map(run, range(self._dp)))
+        else:
+            parts = [run(i) for i in range(self._dp)]
+        return np.concatenate(parts)
 
     def warmup(self) -> None:
         """Run every bucket once, so that no live request pays for the
         first call at a shape (cuDNN plans, the allocator, kernel builds)."""
         for b in self.buckets:
             dummy = np.zeros((b, self.window) + self.frame_shape, np.uint8)
-            self._step(self._place(dummy)).cpu()
+            self._run(dummy)
 
     def submit(self, window: np.ndarray,
                stream_id: Optional[str] = None) -> CaptionFuture:
@@ -384,6 +434,8 @@ class BatchCaptionServer:
             self._closed = True
             self._lock.notify_all()
         self._thread.join(timeout)
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
         with self._lock:
             for req in self._pending.values():
                 req.future._resolve(None, None,
@@ -435,7 +487,7 @@ class BatchCaptionServer:
                     (bucket, self.window) + self.frame_shape, np.uint8)
                 for i, req in enumerate(batch):
                     frames[i] = req.window
-                tokens = self._step(self._place(frames)).cpu().numpy()
+                tokens = self._run(frames)
                 now = time.perf_counter()
                 with self._stats_lock:
                     self.batch_sizes.append(n)

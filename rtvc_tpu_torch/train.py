@@ -35,9 +35,17 @@ Each step's dropout draws come from a generator seeded with ``(seed + 2,
 step)`` (:func:`step_generator`), as JAX folds its dropout key with the
 step, so a resumed run draws what the uninterrupted one drew.
 
+On a mesh (``rtvc_tpu_torch.parallel``) each rank is a process holding
+its dp rows of every global batch: the step sums the float32 gradients
+over dp in one flat all-reduce and takes the mean (JAX's sharded step
+reduces in float32 too), draws its dropout at the global batch's shape and
+keeps its rows, and reports the ranks' mean losses; with tp > 1 the vocab
+layers are split (``parallel.place_params``). ``train()`` and ``main
+--multihost`` run one such process per rank; rank 0 logs, checkpoints and
+evaluates.
+
 Not ported: ``steps_per_dispatch`` (a scan over batches that measured
-slower on the TPU). A device mesh and multi-process runs raise (ROADMAP
-Queue 1 item 17).
+slower on the TPU).
 """
 
 from __future__ import annotations
@@ -60,11 +68,12 @@ from . import metrics as metrics_lib
 from .config import Config, cfg as default_cfg
 from .data.teacher_cache import densify_topk
 from .distill import LossWeights, distillation_losses
+from .ops.dropout import global_rows
+from .parallel import mesh as mesh_lib
+from .parallel.multihost import shard_host_local_batch
 
 # teacher encoder blocks tapped for the fmap loss (reference model.py:844)
 TEACHER_TAP_BLOCKS = (0, 6, 12, 18)
-MULTI_CARD = ("is not ported yet (ROADMAP Queue 1 item 17: "
-              "torch.distributed)")
 EOS = 102  # SEP doubles as the teacher's pad (reference model.py:487)
 
 Schedule = Callable[[int], float]
@@ -362,6 +371,32 @@ def _float_grads(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return grads
 
 
+def _mean_over(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The mean of ``tensors`` over the ranks of ``group``, in one flat
+    all-reduce of their float32 concatenation."""
+    n = mesh_lib.group_size(group)
+    if n == 1:
+        return tensors
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    mesh_lib.all_reduce_(flat, group).div_(n)
+    return [f.view_as(t) for f, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def _global_norm(grads: List[torch.Tensor], sharded: Sequence[int],
+                 tp_group) -> torch.Tensor:
+    """optax's ``global_norm`` of the whole gradient: the tp-sharded
+    leaves' squares summed over tp, the replicated ones counted once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if not sharded or tp_group is None:
+        return torch.linalg.vector_norm(norms)
+    sq = norms * norms
+    mask = torch.zeros_like(sq, dtype=torch.bool)
+    mask[list(sharded)] = True
+    part = mesh_lib.all_reduce_(torch.where(mask, sq, 0.0).sum(), tp_group)
+    return torch.sqrt(torch.where(mask, 0.0, sq).sum() + part)
+
+
 def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
                     weights: LossWeights = LossWeights(),
                     grad_accum: int = 1, kd_beam_size: int = 4,
@@ -370,7 +405,8 @@ def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
                     cache_top_k: int = 0,
                     external_teacher_beam: bool = False,
                     beam_cache_top_k: int = 0,
-                    mark: Optional[Callable[[str], None]] = None):
+                    mark: Optional[Callable[[str], None]] = None,
+                    mesh=None):
     """The distillation step ``step(state, batch, generator) -> metrics``
     for the compute copy ``student`` (``state.model``) and the frozen
     ``teacher``. ``batch`` holds ``frames [B, F, H, W, 3]`` and ``caption
@@ -401,7 +437,21 @@ def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
 
     ``mark(name)``, when given, is called as each part of a step starts:
     ``"teacher"``, ``"student"`` (forward, losses, backward), ``"optimizer"``
-    and, when the step is done, ``"end"``."""
+    and, when the step is done, ``"end"``.
+
+    ``mesh`` (a ``parallel.make_mesh`` mesh over the ranks of a process
+    group; ``student`` and ``teacher`` placed on it with
+    ``parallel.place_params``): ``batch`` holds this rank's dp rows (every
+    cached target too, as ``parallel.shard_batch`` cuts them). The ce
+    divides by the global count of valid tokens, TinyViT's BatchNorm takes
+    the global batch's statistics, dropout and DropPath draw at the global
+    batch's shape from ``generator`` and keep this rank's rows, and the
+    float32 gradients are averaged over dp in one flat all-reduce before
+    Adam; the metrics are the ranks' mean. With ``grad_accum = M`` each
+    rank splits its rows into M microbatches, and microbatch i of the
+    global batch is the ranks' i-th microbatches together (``train()``
+    orders a global batch so that this is the global batch's i-th
+    M-th, as in JAX)."""
     need_fmap = weights.fmap != 0.0
     need_visual = weights.final_enc != 0.0
     need_decoder = weights.decoder != 0.0
@@ -430,6 +480,14 @@ def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
     vocab = teacher.config.vocab_size
     teacher.eval().requires_grad_(False)
     mark = mark or (lambda name: None)
+    dp_group = mesh.group("dp") if mesh is not None else None
+    tp_group = mesh.group("tp") if mesh is not None else None
+    dp = mesh_lib.group_size(dp_group)
+    draws = functools.partial(
+        global_rows, mesh.index("dp") if mesh is not None else 0, dp)
+    split = mesh_lib.sharded_dims(student)
+    sharded = [i for i, (n, _) in enumerate(student.named_parameters())
+               if n in split]
 
     @torch.no_grad()
     def teacher_targets(batch) -> Dict[str, Any]:
@@ -498,9 +556,10 @@ def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
         mark("teacher")
         t = teacher_targets(batch)
         mark("student")
-        outs = student.distill_forward(
-            frames, captions, generator=generator, need_fmap=need_fmap,
-            need_visual=need_visual, need_decoder=need_decoder)
+        with draws():
+            outs = student.distill_forward(
+                frames, captions, generator=generator, need_fmap=need_fmap,
+                need_visual=need_visual, need_decoder=need_decoder)
         losses = distillation_losses(
             student_logits=outs["logits"], teacher_logits=t["teacher_logits"],
             targets=captions, weights=weights,
@@ -513,7 +572,7 @@ def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
             teacher_kd_valid=t.get("teacher_kd_valid"),
             student_hidden_proj=outs.get("hidden_proj"),
             teacher_hidden=t.get("teacher_hidden"),
-            teacher_prefix_len=t["prefix_len"])
+            teacher_prefix_len=t["prefix_len"], dp_group=dp_group)
         losses["total"].backward()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -547,8 +606,13 @@ def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
             torch._foreach_mul_(grads, inv)
             losses = {k: v * inv for k, v in losses.items()}
         mark("optimizer")
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        if dp > 1:
+            grads = _mean_over(grads, dp_group)
+            names = sorted(losses)
+            means = _mean_over([torch.stack([losses[k].float()
+                                             for k in names])], dp_group)[0]
+            losses = dict(zip(names, means.unbind(0)))
+        grad_norm = _global_norm(grads, sharded, tp_group)
         optimizer.update(grads, state.opt_state, state.params)
         with torch.no_grad():
             for p, master in zip(params, state.params):
@@ -647,6 +711,76 @@ def _build_models(config: Config, device) -> Tuple[nn.Module, nn.Module]:
     return student.to(device), teacher
 
 
+def _any_host_triggered(local: bool, device) -> bool:
+    """Any rank's preemption flag: an all-reduce of the ranks' flags, which
+    every rank joins at the epoch barrier."""
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(bool(local))], dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
+
+
+def _eval_on_main(student, loader, tokenizer, logger, epoch, split,
+                  annotations, beam_size, is_main: bool, device
+                  ) -> Tuple[float, List[dict]]:
+    """Rank 0 evaluates the whole split on its copy of the weights; the
+    BLEU is then broadcast as float32 (JAX's ``broadcast_one_to_all``), so
+    that every rank's plateau scheduler steps alike. Other ranks return no
+    outputs."""
+    import torch.distributed as dist
+
+    bleu, outputs = 0.0, []
+    if is_main:
+        bleu, outputs = evaluate(student, loader, tokenizer, logger, epoch,
+                                 split, annotations=annotations,
+                                 beam_size=beam_size)
+    t = torch.tensor([bleu], dtype=torch.float32, device=device)
+    dist.broadcast(t, src=0)
+    return float(t.item()), outputs
+
+
+def _microbatch_order(arrays: Dict[str, Any], dp: int, grad_accum: int
+                      ) -> Dict[str, Any]:
+    """Reorder a global batch's rows so that rank r's i-th of its
+    ``grad_accum`` microbatches is the r-th dp share of the global batch's
+    i-th ``grad_accum``-th (JAX's microbatch over a dp-sharded batch)."""
+    def order(x):
+        n = len(x)
+        idx = np.arange(n).reshape(grad_accum, dp, -1).transpose(1, 0, 2)
+        idx = idx.reshape(-1)
+        if isinstance(x, torch.Tensor):
+            return x[torch.as_tensor(idx, device=x.device)]
+        return [x[i] for i in idx]
+    return {k: order(v) for k, v in arrays.items()}
+
+
+def _rows_are_local(loader) -> bool:
+    """A loader that yields this rank's rows of each global batch (a
+    ``DeviceLoader`` with ``host_slice`` or ``mesh``), not the whole."""
+    return (getattr(loader, "host_slice", None) is not None
+            or getattr(loader, "mesh", None) is not None)
+
+
+def _gathered_tree(state: TrainState, mesh) -> Dict[str, Any]:
+    """:func:`train_state_tree` with every tp-sharded tensor (weights, Adam
+    moments) gathered whole (every rank of the tp group calls), so that a
+    checkpoint loads into a one-card run."""
+    tree = train_state_tree(state)
+    split = mesh_lib.sharded_dims(state.model)
+    group = mesh.group("tp") if mesh is not None else None
+    if not split or group is None:
+        return tree
+    sd = dict(tree["state_dict"])
+    opt = tree["opt_state"]
+    mu, nu = dict(opt["mu"]), dict(opt["nu"])
+    for name, dim in split.items():
+        sd[name] = mesh_lib.all_gather(sd[name].detach(), group, dim)
+        mu[name] = mesh_lib.all_gather(mu[name], group, dim)
+        nu[name] = mesh_lib.all_gather(nu[name], group, dim)
+    return dict(tree, state_dict=sd, opt_state=dict(opt, mu=mu, nu=nu))
+
+
 def train(config: Config, train_loader: Iterable, val_loader, test_loader,
           tokenizer, run_name: str = "run",
           annotations: Optional[Dict[str, List[str]]] = None,
@@ -694,20 +828,59 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
     events; empty on the CPU), ``epoch_eval_s`` (each validation epoch's
     wall time), ``ckpt_wait_s`` and ``ckpt_snapshot_s`` (the loop's waits
     on the background checkpoint writer, and its copies to the host) and
-    ``test_outputs`` (the test epoch's COCO-format captions)."""
+    ``test_outputs`` (the test epoch's COCO-format captions).
+
+    ``mesh``: where it spans the ranks of a process group
+    (``parallel.make_mesh`` after ``parallel.initialize_distributed``),
+    this process is one rank of a data- (and tensor-) parallel run; by
+    default the mesh is ``config.mesh_shape`` / ``mesh_axes`` over the
+    group's ranks, or over ``device`` alone without a group. Each rank
+    builds (or is given) the same models, which are placed on the mesh
+    (``parallel.place_params``, then dp-rank 0's weights broadcast), and
+    runs the step on its dp rows: of each global batch, which ``train()``
+    trims to a multiple of dp × ``grad_accum`` (logged; fewer rows raise
+    ``cannot be split over dp``) and cuts; or, from a loader that already
+    yields this rank's rows (``DeviceLoader`` with ``host_slice`` or
+    ``mesh``), as they are. Rank 0 logs, checkpoints and evaluates; its
+    BLEU is broadcast, and a SIGTERM on any rank stops every rank at the
+    epoch's end. JAX refuses tp > 1 across hosts because its evaluation
+    fetches a host-local replica; here the tp shards are gathered to every
+    rank before an evaluation or a checkpoint, so a checkpoint holds whole
+    tensors and loads into a one-card run, and tp > 1 runs across
+    processes. JAX's shrinking of the default mesh's dp to divide the
+    batch size does not apply: every rank of the group takes part."""
+    import torch.distributed as dist
+
     from .data import teacher_cache as cache_lib
     from .data.io import (AsyncCheckpointSaver, checkpoint_meta,
                           restore_checkpoint, save_checkpoint)
     from .utils.logging import RunLogger
     from .utils.profiling import StepTimer
 
-    if mesh is not None:
-        raise NotImplementedError(f"train(mesh=...) {MULTI_CARD}")
+    if mesh is None:
+        grouped = dist.is_initialized() and dist.get_world_size() > 1
+        mesh = mesh_lib.make_mesh(
+            config.mesh_shape, config.mesh_axes,
+            devices=None if grouped else [
+                next(student.parameters()).device if student is not None
+                else device])
+    multihost = mesh.distributed
+    if not multihost and mesh.size > 1:
+        raise ValueError(
+            f"train() on a mesh of {mesh.size} devices of one process: a "
+            f"dp or tp run is one process per rank (start the ranks with "
+            f"torchrun or parallel.initialize_distributed)")
+    is_main = not multihost or dist.get_rank() == 0
+    dp = mesh.shape.get("dp", 1)
+    tp_group = mesh.group("tp")
+    if multihost:
+        device = mesh.device
     run_dir = os.path.join(config.logger.save_dir, "run", run_name)
     os.makedirs(run_dir, exist_ok=True)
     if config.data.wordnet_path:  # METEOR synonym stage (metrics.py)
         metrics_lib.set_wordnet_path(config.data.wordnet_path)
-    logger = RunLogger(run_dir, run_name, config_dump={
+    logger = _NullLogger() if not is_main else RunLogger(
+        run_dir, run_name, config_dump={
         "Teacher model": "GITTeacher",
         "Teacher model configuration": dataclasses.asdict(config.teacher),
         "Student model": "StudentCandidateV1",
@@ -723,6 +896,10 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
         student = student if student is not None else built[0]
         teacher = teacher if teacher is not None else built[1]
         del built
+    if multihost:
+        mesh_lib.place_params(student, mesh)
+        mesh_lib.place_params(teacher, mesh)
+        mesh_lib.replicate(student, mesh)
     # JAX draws its example batch here: one pass of the loader, so that
     # epoch e of the loop is the loader's pass 1 + e in both packages
     first_pass = iter(train_loader)
@@ -759,7 +936,8 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
     if resume_schedule and resume_from is None:
         raise ValueError("resume_schedule=True needs resume_from")
     if resume_from is not None:
-        load_train_state(state, restore_checkpoint(resume_from))
+        load_train_state(state, mesh_lib.local_tree(
+            state.model, restore_checkpoint(resume_from)))
         logger.write(f"\nresumed from {resume_from} at step "
                      f"{state.step}\n")
         meta_r = checkpoint_meta(resume_from)
@@ -829,6 +1007,7 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
         student, teacher, optimizer, loss_weights,
         kd_beam_size=kd_beam[0], kd_max_steps=kd_beam[1],
         kd_length_penalty=kd_beam[2], grad_accum=grad_accum,
+        mesh=mesh if multihost else None,
         external_teacher_logits=teacher_cache is not None,
         cache_top_k=teacher_cache.top_k if teacher_cache is not None else 0,
         external_teacher_beam=teacher_beam_cache is not None,
@@ -841,7 +1020,7 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
         then replayed in the step as a hit would be (float32, top-K cut)."""
         t_logits = teacher(arrays["frames"], arrays["caption"]).float()
         dense = t_logits.cpu().numpy()
-        teacher_cache.put_batch(keys, dense)
+        store(teacher_cache.put_batch, keys, t_logits)
         if teacher_cache.top_k:
             vals, idx = teacher_cache.compress(dense)
             arrays["teacher_topk_vals"] = torch.from_numpy(vals).to(dev)
@@ -860,13 +1039,13 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
         preds = out.predictions.clone()
         arrays["teacher_beam_predictions"] = preds
         if not teacher_beam_cache.store_consensus:
-            teacher_beam_cache.put_batch(keys, preds.cpu().numpy())
+            store(teacher_beam_cache.put_batch, keys, preds)
             return
         steps = out.logits.shape[0]
         kd_all, _ = decode_lib.teacher_kd_targets(
             out, torch.full((preds.shape[0],), steps, device=dev))
         dense = kd_all.float().cpu().numpy()
-        teacher_beam_cache.put_batch(keys, preds.cpu().numpy(), dense)
+        store(teacher_beam_cache.put_batch, keys, preds, kd_all.float())
         if teacher_beam_cache.top_k:
             vals, idx = teacher_beam_cache.compress(dense)
             arrays["teacher_kd_vals"] = torch.from_numpy(vals).to(dev)
@@ -874,14 +1053,51 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
         else:
             arrays["teacher_kd_logits"] = kd_all.float()
 
+    def run_misses(arrays, misses) -> None:
+        """The live teacher for the batches a cache missed (``misses``:
+        their keys), on ``arrays``' rows."""
+        if "_cache_keys" in misses:
+            logits_miss(arrays, misses["_cache_keys"])
+        if "_beam_cache_keys" in misses:
+            beam_miss(arrays, misses["_beam_cache_keys"])
+
     timer = StepTimer("train_step")
     epochs = max_epochs or config.train.trainer.max_epochs
     history: Dict[str, Any] = {"train_loss": [], "val_loss": [],
                                "epoch_eval_s": [],
                                "epoch_step_device_ms": []}
     ckpt_saver = (AsyncCheckpointSaver()
-                  if config.train.async_checkpointing else None)
+                  if config.train.async_checkpointing and is_main else None)
     save_ckpts = config.train.trainer.enable_checkpointing
+    rows_local = multihost and _rows_are_local(train_loader)
+    # the trim's quantum: every rank's rows split into grad_accum equal
+    # microbatches
+    quant = 1 if rows_local else dp * grad_accum
+
+    def eval_student():
+        # the whole student: its tp shards gathered (every rank calls)
+        return mesh_lib.unshard(student) if tp_group is not None else student
+
+    def run_eval(model, loader, ep, split):
+        if multihost:
+            return _eval_on_main(model, loader, tokenizer, logger, ep, split,
+                                 annotations, config.train.eval_beam_size,
+                                 is_main, device)
+        return evaluate(model, loader, tokenizer, logger, ep, split,
+                        annotations=annotations,
+                        beam_size=config.train.eval_beam_size)
+
+    def store(put, keys, *rows):
+        """Write a missed batch's teacher outputs to a cache: every rank
+        its own rows where they are its own, else rank 0 the global batch's
+        rows gathered over dp."""
+        if rows_local or not multihost:
+            put(keys, *(r.cpu().numpy() for r in rows))
+            return
+        whole = [mesh_lib.all_gather(r.contiguous(), mesh.group("dp"))
+                 for r in rows]
+        if is_main:
+            put(keys, *(w.cpu().numpy() for w in whole))
 
     def plateau_meta() -> Optional[Dict[str, float]]:
         return None if use_onecycle else {
@@ -914,11 +1130,14 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
                 if to_skip > 0:
                     to_skip -= 1
                     continue
-                if guard is not None and guard.triggered:
-                    preempted = True  # stop at this step boundary
+                if guard is not None and guard.triggered and not multihost:
+                    # one process stops at this step boundary; ranks of a
+                    # group stop together at the epoch's end
+                    preempted = True
                     break
                 arrays = {"frames": batch["frames"],
                           "caption": batch["caption"]}
+                misses = {}
                 if teacher_cache is not None:
                     hit = [k for k in ("teacher_topk_vals",
                                        "teacher_topk_idx", "teacher_logits")
@@ -926,7 +1145,7 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
                     if hit:
                         arrays.update((k, batch[k]) for k in hit)
                     else:
-                        logits_miss(arrays, batch["_cache_keys"])
+                        misses["_cache_keys"] = batch["_cache_keys"]
                 if teacher_beam_cache is not None:
                     if "teacher_beam_predictions" in batch:
                         arrays.update(
@@ -935,23 +1154,39 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
                                 "teacher_kd_logits", "teacher_kd_vals",
                                 "teacher_kd_idx") if k in batch)
                     else:
-                        beam_miss(arrays, batch["_beam_cache_keys"])
-                if grad_accum > 1:
+                        misses["_beam_cache_keys"] = \
+                            batch["_beam_cache_keys"]
+                if not multihost:
+                    run_misses(arrays, misses)
+                if quant > 1:
                     # a ragged tail batch must not hit the step's
                     # divisibility error mid-training: trim it
                     bs = int(arrays["caption"].shape[0])
-                    usable = (bs // grad_accum) * grad_accum
+                    usable = (bs // quant) * quant
                     if usable == 0:
                         raise ValueError(
-                            f"batch of {bs} rows cannot be split over dp=1 "
-                            f"x grad_accum={grad_accum}; raise the batch "
-                            f"size or lower cfg.train.grad_accum_steps")
+                            f"batch of {bs} rows cannot be split over "
+                            f"dp={dp} x grad_accum={grad_accum}; raise the "
+                            f"batch size, shrink the mesh's dp axis, or "
+                            f"lower cfg.train.grad_accum_steps")
                     if usable != bs:
                         logger.write(f"\ntrimming ragged batch {bs} -> "
-                                     f"{usable} for dp=1/grad_accum="
+                                     f"{usable} for dp={dp}/grad_accum="
                                      f"{grad_accum} (use drop_last to "
                                      f"avoid)\n")
                         arrays = {k: v[:usable] for k, v in arrays.items()}
+                        misses = {k: v[:usable] for k, v in misses.items()}
+                if multihost:
+                    if rows_local:
+                        arrays = shard_host_local_batch(arrays, mesh)
+                    else:
+                        if dp > 1 and grad_accum > 1:
+                            arrays = _microbatch_order(arrays, dp,
+                                                       grad_accum)
+                            misses = _microbatch_order(misses, dp,
+                                                       grad_accum)
+                        arrays = mesh_lib.shard_batch(arrays, mesh)
+                    run_misses(arrays, misses)
                 t_dispatch = time.perf_counter()
                 if on_card:
                     ev = (torch.cuda.Event(enable_timing=True),
@@ -986,13 +1221,17 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
             mean_loss = float(np.mean(losses_np)) if losses_np else 0.0
             history["train_loss"].append(mean_loss)
 
+            if guard is not None and multihost:
+                # every rank reaches this collective each epoch, so a flag
+                # raised on any rank stops them all here together
+                preempted = _any_host_triggered(guard.triggered, device)
             if preempted:
-                if save_ckpts:
+                tree = _gathered_tree(state, mesh) if save_ckpts else None
+                if save_ckpts and is_main:
                     if ckpt_saver is not None:
                         ckpt_saver.wait()  # earlier epochs' pending writes
                     save_checkpoint(
-                        os.path.join(run_dir, "ckpt_preempt"),
-                        train_state_tree(state),
+                        os.path.join(run_dir, "ckpt_preempt"), tree,
                         meta={"gelu_approximate":
                               bool(config.student.gelu_approximate),
                               "preempted": True, "epoch": epoch,
@@ -1011,10 +1250,8 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
                 break
 
             t_eval = time.perf_counter()
-            val_bleu, _ = evaluate(student, val_loader, tokenizer, logger,
-                                   epoch, "Validation",
-                                   annotations=annotations,
-                                   beam_size=config.train.eval_beam_size)
+            val_bleu, _ = run_eval(eval_student(), val_loader, epoch,
+                                   "Validation")
             history["epoch_eval_s"].append(time.perf_counter() - t_eval)
             history["val_loss"].append(val_bleu)
             if use_onecycle:
@@ -1027,7 +1264,8 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
             logger.log_scalars(epoch, {"train_loss": mean_loss,
                                        "val_loss": val_bleu, "lr": new_lr,
                                        **timer.summary()})
-            if save_ckpts:
+            tree = _gathered_tree(state, mesh) if save_ckpts else None
+            if save_ckpts and is_main:
                 path = os.path.join(run_dir, f"ckpt_{epoch:02d}")
                 prune = functools.partial(_prune_checkpoints, run_dir,
                                           config.callback.save_top_k)
@@ -1039,11 +1277,9 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
                         bool(config.student.gelu_approximate),
                         "epoch": epoch, "plateau": plateau_meta()}
                 if ckpt_saver is not None:
-                    ckpt_saver.save(path, train_state_tree(state),
-                                    on_done=prune, meta=meta)
+                    ckpt_saver.save(path, tree, on_done=prune, meta=meta)
                 else:
-                    save_checkpoint(path, train_state_tree(state),
-                                    meta=meta)
+                    save_checkpoint(path, tree, meta=meta)
                     prune()
     finally:
         if guard is not None:
@@ -1055,9 +1291,8 @@ def train(config: Config, train_loader: Iterable, val_loader, test_loader,
         history["ckpt_snapshot_s"] = ckpt_saver.snapshot_s
     if not preempted:
         # the reclaim grace window is for the checkpoint, not a test epoch
-        test_bleu, history["test_outputs"] = evaluate(
-            student, test_loader, tokenizer, logger, epochs, "Test",
-            annotations=annotations, beam_size=config.train.eval_beam_size)
+        test_bleu, history["test_outputs"] = run_eval(
+            eval_student(), test_loader, epochs, "Test")
         history["test_loss"] = test_bleu
     else:
         history["test_loss"] = None
@@ -1078,7 +1313,14 @@ def main(argv: Optional[List[str]] = None):
     weights, against the config's teacher on the MSRVTT-format data the
     config's paths name (relative to the working directory), into
     ``<save_dir>/run/<%y%m%d_%H%M%S>``. Returns ``train()``'s (state,
-    history)."""
+    history).
+
+    ``--multihost`` (or ``config.multihost``): one process per rank, each
+    started by torchrun or with JAX's ``COORDINATOR_ADDRESS`` /
+    ``NUM_PROCESSES`` / ``PROCESS_ID``; ``parallel.initialize_distributed``
+    joins them (and without either environment the run stays in one
+    process, as JAX's does), the mesh spans the ranks, and each rank's
+    train loader decodes only its dp rows of each global batch."""
     import argparse
 
     from .data.dataset import CaptionDataset, DeviceLoader, load_labels
@@ -1086,7 +1328,9 @@ def main(argv: Optional[List[str]] = None):
 
     parser = argparse.ArgumentParser(prog="rtvc_tpu_torch.train")
     parser.add_argument("--multihost", action="store_true",
-                        help=f"train over several processes ({MULTI_CARD})")
+                        help="join a process group and train over all its "
+                             "ranks (env: COORDINATOR_ADDRESS, "
+                             "NUM_PROCESSES, PROCESS_ID, or torchrun's)")
     parser.add_argument("--resume", metavar="CKPT", default=None,
                         help="checkpoint to restore (params, optimizer "
                              "state, step) before training")
@@ -1100,10 +1344,16 @@ def main(argv: Optional[List[str]] = None):
                         help="the card to train on (cpu for a run without "
                              "one)")
     args = parser.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(f"--multihost {MULTI_CARD}")
 
     config = default_cfg
+    multihost = False
+    device = args.device
+    if args.multihost or config.multihost:
+        from .parallel.multihost import initialize_distributed, rank_device
+        rank_dev = None if args.device == "cuda" else args.device
+        multihost = initialize_distributed(device=rank_dev)
+        if multihost:
+            device = rank_device(rank_dev)
     try:
         data, encoded = load_labels(config.data.captions_path,
                                     config.data.encoded_caption_ids)
@@ -1112,6 +1362,16 @@ def main(argv: Optional[List[str]] = None):
               file=sys.stderr)
         sys.exit(1)
 
+    mesh, host_slice = None, None
+    if multihost:
+        from .parallel.mesh import make_mesh
+        from .parallel.multihost import host_batch_slice
+        mesh = make_mesh(config.mesh_shape, config.mesh_axes)
+        # the tp ranks of a dp index share its rows
+        host_slice = host_batch_slice(config.train.batch_size,
+                                      mesh.index("dp"),
+                                      mesh.shape.get("dp", 1))
+
     splits = {}
     for split in ("train", "validate", "test"):
         # every split's caption choice is seeded: the video→caption pairing
@@ -1119,10 +1379,13 @@ def main(argv: Optional[List[str]] = None):
         ds = CaptionDataset(config.data.videos_path, data.video_ids(split),
                             data, encoded, num_frames=config.data.num_frames,
                             random_state=config.seed)
+        # train batches are host-sliced (each rank decodes its rows of the
+        # global batch); val/test stay whole: rank 0 evaluates alone
         splits[split] = DeviceLoader(
             ds, config.train.batch_size, shuffle=(split == "train"),
             seed=config.seed, drop_last=(split == "train"),
-            prefetch_depth=config.data.prefetch_depth, device=args.device)
+            prefetch_depth=config.data.prefetch_depth, device=device,
+            host_slice=host_slice if split == "train" else None)
 
     annotations = None
     if config.data.annotation_path and \
@@ -1137,7 +1400,7 @@ def main(argv: Optional[List[str]] = None):
                  resume_schedule=args.resume_schedule,
                  teacher_cache=config.train.teacher_cache_dir or None,
                  teacher_beam_cache=config.train.teacher_beam_cache_dir
-                 or None, device=args.device)
+                 or None, mesh=mesh, device=device)
 
 
 if __name__ == "__main__":

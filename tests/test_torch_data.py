@@ -351,9 +351,38 @@ def test_device_loader_surfaces_producer_errors(tree, tmp_path):
         list(pds.DeviceLoader(broken, 2, device="cpu"))
 
 
-def test_device_loader_mesh_not_ported(tree):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        pds.DeviceLoader(datasets(tree)[1], 2, mesh=object())
+def _rank_mesh(dp: int, index: int):
+    """The mesh rank ``index`` of a dp-only process group sees (its
+    placement makes no collective, so no group is needed here)."""
+    import collections
+    from rtvc_tpu_torch.parallel.mesh import Mesh
+    return Mesh(collections.OrderedDict(dp=dp, tp=1), torch.device("cpu"),
+                {"dp": index, "tp": 0}, {}, None, True)
+
+
+@pytest.mark.parametrize("preprocess", [False, True])
+def test_device_loader_mesh_rows_equal_jax(tree, preprocess):
+    """``DeviceLoader(mesh=...)``: each dp rank gets its rows of every
+    batch; the ranks' rows together are JAX's dp-sharded global batch."""
+    from rtvc_tpu.parallel.mesh import make_mesh as jax_mesh
+    jds_, pds_ = datasets(tree)
+    kw = dict(shuffle=True, seed=2, drop_last=True, preprocess=preprocess)
+    jb = list(jds.DeviceLoader(jds_, 2, mesh=jax_mesh((2, 1)), **kw))
+    ranks = [list(pds.DeviceLoader(pds_, 2, mesh=_rank_mesh(2, i), **kw))
+             for i in range(2)]
+    assert len(ranks[0]) == len(ranks[1]) == len(jb) == len(pds_) // 2 > 1
+    for j, b0, b1 in zip(jb, *ranks):
+        assert j["frames"].sharding.spec[0] == "dp"
+        assert [len(b["vid-id"]) for b in (b0, b1)] == [1, 1]
+        whole = {k: (torch.cat([b0[k], b1[k]]) if k in ("frames", "caption")
+                     else b0[k] + b1[k]) for k in b0}
+        assert_batches_equal([j], [whole], frames_atol=TOL)
+    with pytest.raises(ValueError, match="does not split"):
+        list(pds.DeviceLoader(pds_, 3, mesh=_rank_mesh(2, 0), **kw))
+    from rtvc_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="one rank of a process group"):
+        pds.DeviceLoader(pds_, 4, mesh=make_mesh((2, 1),
+                                                 devices=["cpu"] * 2))
 
 
 def test_preprocess_matches_jax_at_msrvtt_size():

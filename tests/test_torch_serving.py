@@ -132,6 +132,34 @@ def test_batched_equals_single_request(served, beam):
     assert max(sizes) > 1  # the linger actually coalesced
 
 
+@pytest.mark.parametrize("vocab_int8", [False, True])
+def test_dp_mesh_serving_matches_single_device(served, vocab_int8):
+    """tests/test_serving.py's case on the port: ``mesh=`` makes one
+    replica per dp device (int8-packed each under ``vocab_int8``), rounds
+    max_batch and the buckets up to dp multiples and splits each batch
+    over the replicas; the captions equal the single-device server's."""
+    from rtvc_tpu_torch.parallel import make_mesh
+
+    port = served[2]
+    mesh = make_mesh((4, 1), devices=["cpu"] * 4)
+    wins = _windows(5, seed=3)
+    with _server(port, max_wait_ms=0.0, vocab_int8=vocab_int8) as solo:
+        singles = [solo.submit(w).result(timeout=TIMEOUT) for w in wins]
+    with _server(port, max_wait_ms=50.0, max_batch=6, mesh=mesh,
+                 vocab_int8=vocab_int8) as dp_srv:
+        assert dp_srv.max_batch == 8          # 6 rounded up to dp multiple
+        assert dp_srv.buckets == (4, 8)       # every bucket divisible by 4
+        assert len(dp_srv.replicas) == 4 and dp_srv.replicas[0] is port
+        assert len({id(r) for r in dp_srv.replicas}) == 4
+        if vocab_int8:
+            assert all(hasattr(r, "vocab_w8") for r in dp_srv.replicas)
+        futs = [dp_srv.submit(w) for w in wins]
+        texts = [f.result(timeout=TIMEOUT) for f in futs]
+        sizes = list(dp_srv.batch_sizes)
+    assert texts == singles
+    assert max(sizes) > 1  # coalesced across the replicas
+
+
 def test_beam_serving_matches_direct_beam(served):
     """beam=K serves the beam step: a served caption equals the direct
     beam step's row ([B, max_len], not greedy's [B, 1 + max_len])

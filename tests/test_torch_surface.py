@@ -89,7 +89,9 @@ OVERRIDES = [
                "eval_beam_size": 3},
      "student": {"d_model": 64, "dropout": 0.1},
      "teacher": {"beam_size": 2},
-     "TPU": {"compute_dtype": "float32", "remat_encoder": True},
+     "TPU": {"compute_dtype": "float32", "remat_encoder": True,
+             "mesh_shape": (2, 2), "mesh_axes": ("dp", "tp"),
+             "multihost": True},
      "wandb": {"mode": "disabled"}},
 ]
 
@@ -122,7 +124,7 @@ def test_from_dict_rejects_unknown_keys_as_jax():
             pconfig.from_dict(bad)
     # a TpuConfig field the port does not keep
     with pytest.raises(KeyError, match="TpuConfig"):
-        pconfig.from_dict({"TPU": {"mesh_shape": (1, 1)}})
+        pconfig.from_dict({"TPU": {"steps_per_dispatch": 4}})
     base = pconfig.from_dict({"SEED": 3})
     assert pconfig.from_dict({"TRAIN": {"LR": 1.0}}, base=base).seed == 3
 

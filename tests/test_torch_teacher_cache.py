@@ -213,6 +213,43 @@ def test_replay_feed_hands_out_hits_and_keys(tmp_path, top_k):
                               beam_hit["predictions"])
 
 
+def test_replay_feed_mesh_hands_out_this_ranks_rows(tmp_path):
+    """``CacheReplayFeed(mesh=...)``, as JAX's shards its hits over dp:
+    each dp rank's feed uploads its share of every hit's rows, the keys
+    stay the batch's; a loader that yields its rank's rows already keeps
+    its hits whole."""
+    import collections
+
+    from rtvc_tpu_torch.parallel.mesh import Mesh
+
+    def rank(i):
+        return Mesh(collections.OrderedDict(dp=2, tp=1),
+                    torch.device("cpu"), {"dp": i, "tp": 0}, {}, None, True)
+
+    loader = _loader(2)
+    cache = pcache.TeacherLogitsCache(str(tmp_path / "l"))
+    whole = []
+    for i, batch in enumerate(loader):
+        keys = [cache.key(v, c) for v, c in zip(batch["vid-id"],
+                                                batch["caption-id"])]
+        cache.put_batch(keys, logits(2, i))
+        whole.append(cache.get_batch(keys))
+    ranks = [list(pcache.CacheReplayFeed(loader, cache, device="cpu",
+                                         mesh=rank(i))) for i in range(2)]
+    for j, (a, b) in enumerate(zip(*ranks)):
+        assert a["_cache_keys"] == b["_cache_keys"]  # the batch's keys
+        assert a["teacher_logits"].shape[0] == 1
+        got = torch.cat([a["teacher_logits"], b["teacher_logits"]])
+        assert np.array_equal(got.numpy(), whole[j])
+
+    class RankLoader(list):
+        host_slice = (0, 2)
+
+    kept = list(pcache.CacheReplayFeed(RankLoader(loader), cache,
+                                       device="cpu", mesh=rank(1)))
+    assert np.array_equal(kept[0]["teacher_logits"].numpy(), whole[0])
+
+
 def test_replay_feed_prefetches_ahead_of_the_consumer(tmp_path):
     cache = pcache.TeacherLogitsCache(str(tmp_path))
     read = []

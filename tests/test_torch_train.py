@@ -361,8 +361,9 @@ def test_train_step_learns_with_dropout(step_pair):
 def test_make_train_step_refuses_what_is_not_ported(step_pair, tmp_path):
     """The beam-KD losses and replayed teacher outputs are ported
     (tests/test_torch_train_loop.py holds them against JAX): the step
-    builds for each. A device mesh is not: ``train()`` refuses it, naming
-    its ROADMAP item."""
+    builds for each. A mesh of several devices in one process is not a
+    parallel run (the port runs one process per rank,
+    tests/test_torch_parallel.py): ``train()`` refuses it."""
     p = step_pair
     student = _port_student(p["variables"])
     opt = train.Adam()
@@ -373,9 +374,12 @@ def test_make_train_step_refuses_what_is_not_ported(step_pair, tmp_path):
                                               **kw))
     config = config_from({"logger": {"save_dir": str(tmp_path)},
                           "compute_dtype": "float32"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from rtvc_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="one process per rank"):
         train.train(config, [], [], [], None, student=student,
-                    teacher=p["pteacher"], mesh=object(), device="cpu")
+                    teacher=p["pteacher"],
+                    mesh=make_mesh((2, 1), devices=["cpu"] * 2),
+                    device="cpu")
 
 
 def test_create_train_state_keeps_float32_masters():
@@ -492,3 +496,5 @@ def test_train_config_equals_jax():
     assert pconfig.Config().remat_encoder == jcfg.tpu.remat_encoder
     assert pconfig.Config().train == pconfig.TrainConfig()
     assert pconfig.Config().compute_dtype == jcfg.tpu.compute_dtype
+    for name in ("mesh_shape", "mesh_axes", "multihost"):
+        assert getattr(pconfig.Config(), name) == getattr(jcfg.tpu, name)

@@ -41,6 +41,7 @@ import optax
 import pytest
 import torch
 
+import chip_smoke
 from rtvc_tpu import config as jconfig
 from rtvc_tpu import distill as jdistill
 from rtvc_tpu import train as jtrain
@@ -136,27 +137,11 @@ def jax_config(tmp, **train_over):
 def rounding_noise(student, name, shape) -> np.ndarray:
     """The elements of a trained entry whose gradient is zero in exact
     arithmetic, where each package's rounding noise, which Adam turns into
-    steps of ±lr, decides the value at every step: the key bias of every
-    attention (the softmax is shift-invariant in it), the MLP output bias
-    of every stage but the last (it feeds only the next stage's 1x1 conv
-    and its train-mode BatchNorm), and the running means of those
-    BatchNorms."""
-    mask = np.zeros(shape, bool)
-    parts = name.split(".")
-    enc = student.image_encoder["model"]
-    last = len(enc.stages) - 1
-    if name.endswith("in_proj_bias"):
-        d = shape[0] // 3
-        mask[d:2 * d] = True
-    elif name.endswith("attn.qkv.bias"):
-        heads = enc.stages[int(parts[3])]["blocks"][0].attn.num_heads
-        mask.reshape(heads, 3, -1)[:, 1] = True
-    elif name.endswith("mlp.fc2.bias") and int(parts[3]) < last:
-        mask[:] = True
-    elif (name.endswith("downsample.conv1.bn.running_mean")
-          and int(parts[3]) > 1):
-        mask[:] = True
-    return mask
+    steps of ±lr, decides the value at every step
+    (``chip_smoke.rounding_noise``, by which phase 10 compares runs: the
+    key bias of every attention, the MLP output bias of every stage but
+    the last, and the running means of the BatchNorms those feed)."""
+    return chip_smoke.rounding_noise(student, name, shape)
 
 
 def scalars(save_dir, run):
@@ -638,12 +623,25 @@ def test_resume_schedule_bitwise_continuation(pair, tmp_path):
         run("f", ShuffledLoader(), resume_schedule=True)
 
 
-def test_mesh_raises_naming_the_roadmap_item(pair, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        train.train(port_config(tmp_path), [], [], [],
-                    BertWordPieceTokenizer(), student=_port_student(
-                        pair["variables"]), teacher=pair["pteacher"],
-                    mesh=object(), device="cpu")
+def test_one_device_mesh_is_the_default_run(pair, tmp_path):
+    """``train(mesh=make_mesh((1, 1)))`` runs as the default (a mesh of
+    one device, no process group) does, bit for bit; a mesh of two devices
+    of one process raises (the port runs one process per rank)."""
+    from rtvc_tpu_torch.parallel import make_mesh
+
+    def run(name, **kw):
+        return train.train(
+            port_config(tmp_path, trainer={"max_epochs": 1}),
+            port_batches(jax_batches([0])), [], [], BertWordPieceTokenizer(),
+            run_name=name, student=_port_student(pair["variables"]),
+            teacher=pair["pteacher"], device="cpu", **kw)
+
+    state_a, hist_a = run("a")
+    state_b, hist_b = run("b", mesh=make_mesh((1, 1), devices=["cpu"]))
+    assert hist_b["train_loss"] == hist_a["train_loss"]
+    _assert_states_equal(state_a, state_b)
+    with pytest.raises(ValueError, match="one process per rank"):
+        run("c", mesh=make_mesh((2, 1), devices=["cpu"] * 2))
 
 
 @pytest.mark.parametrize("top_k", [0, 8])
@@ -888,8 +886,14 @@ def test_main_then_evaluate_its_checkpoint(tmp_path, monkeypatch, capsys):
     preds = json.loads(open(out + ".preds.json").read())
     assert preds == hist["test_outputs"]
     assert scores["corpus_bleu4"] == hist["test_loss"]
-    with pytest.raises(NotImplementedError, match="item 17"):
-        train.main(["--multihost"])
+    # --multihost without a process group's environment trains in this
+    # one process, as JAX's does
+    for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                "MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    state_m, hist_m = train.main(["--multihost", "--device", "cpu"])
+    assert state_m.step == state.step
+    assert hist_m["train_loss"] == hist["train_loss"]
 
 
 
