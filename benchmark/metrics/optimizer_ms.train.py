@@ -1,0 +1,9 @@
+"""CUDA-event ms a step of the train step's optimizer part, between the
+program's ``mark`` points, averaged over the steps of the measured
+window of a traced run."""
+
+from benchlib.readers import span_mean
+
+
+def read(run):
+    return span_mean(run, "optimizer_ms")
