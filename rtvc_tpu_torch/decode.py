@@ -41,6 +41,7 @@ import torch
 
 from .models.git_teacher import Cache, GITTeacher
 from .models.student import StudentCandidateV1
+from .utils.profiling import span
 
 
 @torch.inference_mode()
@@ -56,7 +57,8 @@ def student_greedy(model: StudentCandidateV1, frames: torch.Tensor,
     program must: it runs all ``max_len`` steps, writes 0 once every row
     has emitted SEP at one step and keeps the rows of the early stop, as
     JAX's while-loop leaves them."""
-    _, memory = model.forward_image_enc(frames)
+    with span("rtvc.decode.encode"):
+        _, memory = model.forward_image_enc(frames)
     b = frames.shape[0]
     total = 1 + max_len
     caches = model.init_cache(b, total, memory)
@@ -66,18 +68,21 @@ def student_greedy(model: StudentCandidateV1, frames: torch.Tensor,
     done = None if host_stop else torch.zeros((), dtype=torch.bool,
                                               device=memory.device)
     for i in range(max_len):
-        kv_mask = (pos <= i) & (tokens != 0)
-        logits, caches = model.decode_step(tokens[:, i], i, caches, kv_mask,
-                                           vocab_w8=vocab_w8)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        stop = (nxt == model.sep_token_id).all()
-        if host_stop:
-            tokens[:, i + 1] = nxt
-            if bool(stop):
-                break
-        else:
-            tokens[:, i + 1] = torch.where(done, 0, nxt)
-            done = done | stop
+        with span("rtvc.decode.token"):
+            kv_mask = (pos <= i) & (tokens != 0)
+            logits, caches = model.decode_step(tokens[:, i], i, caches,
+                                               kv_mask, vocab_w8=vocab_w8)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            stop = (nxt == model.sep_token_id).all()
+            if host_stop:
+                tokens[:, i + 1] = nxt
+                with span("rtvc.decode.stop_wait"):
+                    stopped = bool(stop)
+                if stopped:
+                    break
+            else:
+                tokens[:, i + 1] = torch.where(done, 0, nxt)
+                done = done | stop
     return tokens
 
 
@@ -128,14 +133,17 @@ def student_beam(model: StudentCandidateV1, frames: torch.Tensor,
     highest-scoring beam after ``max_len - 1`` words. No length penalty, no
     EOS handling, no pad mask (unlike greedy). ``vocab_w8`` sends the vocab
     projection through K3, as in :func:`student_greedy`."""
-    _, memory = model.forward_image_enc(frames)
+    with span("rtvc.decode.encode"):
+        _, memory = model.forward_image_enc(frames)
     b = frames.shape[0]
     dev = memory.device
     caches = model.init_cache(b, max_len, memory)
     cls = torch.full((b,), model.cls_token_id, dtype=torch.int32, device=dev)
-    logits0, caches = model.decode_step(cls, 0, caches, None,
-                                        vocab_w8=vocab_w8)
-    scores, top_idx = top_k(torch.log_softmax(logits0.float(), dim=-1), k)
+    with span("rtvc.decode.token"):
+        logits0, caches = model.decode_step(cls, 0, caches, None,
+                                            vocab_w8=vocab_w8)
+        scores, top_idx = top_k(torch.log_softmax(logits0.float(), dim=-1),
+                                k)
 
     seqs = torch.zeros((b, k, max_len), dtype=torch.int32, device=dev)
     seqs[:, :, 0] = model.cls_token_id
@@ -146,14 +154,17 @@ def student_beam(model: StudentCandidateV1, frames: torch.Tensor,
         caches, torch.arange(b, device=dev).repeat_interleave(k))
     batch_rows = torch.arange(b, device=dev)[:, None] * k
     for step in range(2, max_len):
-        logits, caches = model.decode_step(
-            seqs[:, :, step - 1].reshape(b * k), step - 1, caches, None,
-            vocab_w8=vocab_w8)
-        scores, sel_beams, sel_words = beam_select(logits.float(), scores)
-        seqs = torch.gather(seqs, 1, sel_beams[:, :, None].expand(-1, -1,
-                                                                  max_len))
-        seqs[:, :, step] = sel_words.to(torch.int32)
-        caches = _gather_cache(caches, (batch_rows + sel_beams).reshape(-1))
+        with span("rtvc.decode.token"):
+            logits, caches = model.decode_step(
+                seqs[:, :, step - 1].reshape(b * k), step - 1, caches, None,
+                vocab_w8=vocab_w8)
+            scores, sel_beams, sel_words = beam_select(logits.float(),
+                                                       scores)
+            seqs = torch.gather(
+                seqs, 1, sel_beams[:, :, None].expand(-1, -1, max_len))
+            seqs[:, :, step] = sel_words.to(torch.int32)
+            caches = _gather_cache(caches,
+                                   (batch_rows + sel_beams).reshape(-1))
     best = torch.argmax(scores, dim=-1)
     return seqs[torch.arange(b, device=dev), best]
 

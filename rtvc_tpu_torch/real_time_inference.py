@@ -29,8 +29,8 @@ import torch
 
 from .config import Config, cfg as default_cfg
 from .models.student import StudentCandidateV1
-from .serving import make_caption_step
-from .utils.profiling import StepTimer
+from .serving import STATS_WINDOW, make_caption_step
+from .utils.profiling import StepTimer, span
 
 FRAME_KEEP_EVERY = 3   # reference real_time_inference.py:48
 WINDOW = 6             # frames per caption (reference :56)
@@ -98,7 +98,7 @@ class StreamingCaptioner:
         self.tokenizer = tokenizer
         self.max_len = max_len
         self.device = next(student.parameters()).device
-        self.timer = StepTimer("caption")
+        self.timer = StepTimer("caption", window=STATS_WINDOW)
         self._step = make_caption_step(student, max_len=max_len)
         if frame_shape is not None:
             self.warmup(frame_shape)
@@ -109,12 +109,18 @@ class StreamingCaptioner:
         self._step(dummy).cpu()
 
     def caption(self, window: np.ndarray) -> str:
-        self.timer.start()
-        tokens = self._step(torch.from_numpy(
-            np.ascontiguousarray(window)[None]).to(self.device))
-        tokens = tokens.cpu().numpy()  # waits for the card
-        self.timer.stop()
-        return self.tokenizer.decode(tokens[0], skip_special_tokens=True)
+        with span("rtvc.stream.caption"):
+            self.timer.start()
+            with span("rtvc.stream.h2d"):
+                frames = torch.from_numpy(
+                    np.ascontiguousarray(window)[None]).to(self.device)
+            tokens = self._step(frames)
+            with span("rtvc.stream.readback"):
+                tokens = tokens.cpu().numpy()  # waits for the card
+            self.timer.stop()
+            with span("rtvc.stream.detokenize"):
+                return self.tokenizer.decode(tokens[0],
+                                             skip_special_tokens=True)
 
 
 def run_realtime(config: Config = default_cfg, source: Any = 0,

@@ -45,6 +45,7 @@ from .decode import student_beam, student_greedy
 from .models.student import StudentCandidateV1
 from .ops.preprocess import clip_preprocess
 from .ops.quantization import quantize_vocab_head
+from .utils.profiling import span
 
 SEP_TOKEN_ID = 102  # BERT [SEP], the reference's stop token
 STATS_WINDOW = 4096  # recent samples kept for latency/batch percentiles
@@ -86,16 +87,19 @@ def make_caption_step(student: StudentCandidateV1, *, max_len: int = 25,
 
     @torch.inference_mode()
     def step(frames_u8: torch.Tensor) -> torch.Tensor:
-        b, w = frames_u8.shape[:2]
-        proc = clip_preprocess(frames_u8.reshape((b * w,) + frames_u8.shape[2:]),
-                               crop_size=crop_size)
-        proc = proc.reshape((b, w) + proc.shape[1:])
-        vocab_w8 = student.vocab_w8 if vocab_int8 else None
-        if beam > 0:
-            return student_beam(student, proc, max_len=max_len, k=beam,
-                                vocab_w8=vocab_w8)
-        return student_greedy(student, proc, max_len=max_len,
-                              vocab_w8=vocab_w8, host_stop=host_stop)
+        with span("rtvc.caption.step"):
+            b, w = frames_u8.shape[:2]
+            with span("rtvc.caption.preprocess"):
+                proc = clip_preprocess(
+                    frames_u8.reshape((b * w,) + frames_u8.shape[2:]),
+                    crop_size=crop_size)
+                proc = proc.reshape((b, w) + proc.shape[1:])
+            vocab_w8 = student.vocab_w8 if vocab_int8 else None
+            if beam > 0:
+                return student_beam(student, proc, max_len=max_len, k=beam,
+                                    vocab_w8=vocab_w8)
+            return student_greedy(student, proc, max_len=max_len,
+                                  vocab_w8=vocab_w8, host_stop=host_stop)
 
     return step
 
@@ -338,6 +342,8 @@ class BatchCaptionServer:
         # bounded windows of recent samples; totals are scalar counters
         self.batch_sizes: "deque[int]" = deque(maxlen=STATS_WINDOW)
         self.latencies_s: "deque[float]" = deque(maxlen=STATS_WINDOW)
+        # submit → taken by the scheduler, a sample a request
+        self.queue_waits_s: "deque[float]" = deque(maxlen=STATS_WINDOW)
         self._n_batches = 0
         self._batch_rows_total = 0
         self._served = 0
@@ -364,12 +370,17 @@ class BatchCaptionServer:
 
     def _run(self, frames_np: np.ndarray) -> np.ndarray:
         """A padded host batch -> its caption rows on the host."""
-        placed = self._place(frames_np)
+        with span("rtvc.serve.place"):
+            placed = self._place(frames_np)
         if self._dp == 1:
-            return self._step(placed).cpu().numpy()
+            rows = self._step(placed)
+            with span("rtvc.serve.readback"):
+                return rows.cpu().numpy()
 
         def run(i):
-            return self._steps[i](placed[i]).cpu().numpy()
+            rows = self._steps[i](placed[i])
+            with span("rtvc.serve.readback"):
+                return rows.cpu().numpy()
 
         if self._pool is not None:
             parts = list(self._pool.map(run, range(self._dp)))
@@ -410,8 +421,10 @@ class BatchCaptionServer:
         return req.future
 
     def stats(self) -> Dict[str, float]:
+        """Counters, and percentiles over the last ``STATS_WINDOW``
+        requests of the latency (submit → resolved) and the queue wait
+        (submit → taken by the scheduler)."""
         with self._stats_lock:
-            lat = sorted(self.latencies_s)  # recent STATS_WINDOW samples
             out: Dict[str, float] = {
                 "served": float(self._served),
                 "superseded": float(self._superseded),
@@ -419,10 +432,14 @@ class BatchCaptionServer:
                 "mean_batch": (self._batch_rows_total /
                                max(self._n_batches, 1)),
             }
-            if lat:
-                out["latency_p50_ms"] = lat[len(lat) // 2] * 1e3
-                out["latency_p95_ms"] = lat[int(len(lat) * 0.95)
-                                            if len(lat) > 1 else 0] * 1e3
+            for name, window in (("latency", self.latencies_s),
+                                 ("queue_wait", self.queue_waits_s)):
+                if window:
+                    ordered = sorted(window)
+                    out[f"{name}_p50_ms"] = ordered[len(ordered) // 2] * 1e3
+                    out[f"{name}_p95_ms"] = ordered[
+                        int(len(ordered) * 0.95) if len(ordered) > 1
+                        else 0] * 1e3
             if (self._t_first is not None and self._t_last is not None
                     and self._t_last > self._t_first):
                 out["throughput_windows_per_s"] = (
@@ -454,23 +471,31 @@ class BatchCaptionServer:
         """Block until work exists, linger max_wait_ms for coalescing, then
         take up to max_batch requests FIFO."""
         with self._lock:
-            while not self._pending and not self._closed:
-                self._lock.wait(0.1)
+            if not self._pending and not self._closed:
+                with span("rtvc.serve.wait"):
+                    while not self._pending and not self._closed:
+                        self._lock.wait(0.1)
             if self._closed and not self._pending:
                 return []
-            if self.max_wait_s > 0:
-                deadline = time.perf_counter() + self.max_wait_s
-                while (len(self._pending) < self.max_batch
-                       and not self._closed):
-                    remaining = deadline - time.perf_counter()
-                    if remaining <= 0:
-                        break
-                    self._lock.wait(remaining)
+            if (self.max_wait_s > 0 and len(self._pending) < self.max_batch
+                    and not self._closed):
+                with span("rtvc.serve.linger"):
+                    deadline = time.perf_counter() + self.max_wait_s
+                    while (len(self._pending) < self.max_batch
+                           and not self._closed):
+                        remaining = deadline - time.perf_counter()
+                        if remaining <= 0:
+                            break
+                        self._lock.wait(remaining)
             batch: List[_Request] = []
             while self._pending and len(batch) < self.max_batch:
                 _, req = self._pending.popitem(last=False)
                 batch.append(req)
-            return batch
+        taken = time.perf_counter()
+        with self._stats_lock:
+            self.queue_waits_s.extend(taken - req.future.submit_time
+                                      for req in batch)
+        return batch
 
     def _scheduler_loop(self) -> None:
         while True:
@@ -481,31 +506,39 @@ class BatchCaptionServer:
                         return
                 continue
             try:
-                n = len(batch)
-                bucket = next(b for b in self.buckets if b >= n)
-                frames = np.zeros(
-                    (bucket, self.window) + self.frame_shape, np.uint8)
-                for i, req in enumerate(batch):
-                    frames[i] = req.window
-                tokens = self._run(frames)
-                now = time.perf_counter()
-                with self._stats_lock:
-                    self.batch_sizes.append(n)
-                    self._n_batches += 1
-                    self._batch_rows_total += n
-                    if self._t_first is None:
-                        self._t_first = now
-                    self._t_last = now
-                    self._served += n
-                for i, req in enumerate(batch):
-                    row = truncate_at_sep(tokens[i])
-                    text = self.tokenizer.decode(row,
-                                                 skip_special_tokens=True)
-                    req.future._resolve(text, row)
+                # the batch's work stays inline: moved into a method, whose
+                # locals (the host batch) go at each return, the server ran
+                # at half speed under torch.profiler, for reasons not found
+                with span("rtvc.serve.batch"):
+                    n = len(batch)
+                    bucket = next(b for b in self.buckets if b >= n)
+                    with span("rtvc.serve.assemble"):
+                        frames = np.zeros(
+                            (bucket, self.window) + self.frame_shape,
+                            np.uint8)
+                        for i, req in enumerate(batch):
+                            with span("rtvc.serve.row"):
+                                frames[i] = req.window
+                    tokens = self._run(frames)
+                    now = time.perf_counter()
                     with self._stats_lock:
-                        lat = req.future.latency_s
-                        if lat is not None:
-                            self.latencies_s.append(lat)
+                        self.batch_sizes.append(n)
+                        self._n_batches += 1
+                        self._batch_rows_total += n
+                        if self._t_first is None:
+                            self._t_first = now
+                        self._t_last = now
+                        self._served += n
+                    with span("rtvc.serve.resolve"):
+                        for i, req in enumerate(batch):
+                            row = truncate_at_sep(tokens[i])
+                            text = self.tokenizer.decode(
+                                row, skip_special_tokens=True)
+                            req.future._resolve(text, row)
+                            with self._stats_lock:
+                                lat = req.future.latency_s
+                                if lat is not None:
+                                    self.latencies_s.append(lat)
             except Exception as e:  # resolve rather than wedge clients
                 for req in batch:
                     if not req.future.done():

@@ -71,6 +71,7 @@ from .distill import LossWeights, distillation_losses
 from .ops.dropout import global_rows
 from .parallel import mesh as mesh_lib
 from .parallel.multihost import shard_host_local_batch
+from .utils.profiling import span
 
 # teacher encoder blocks tapped for the fmap loss (reference model.py:844)
 TEACHER_TAP_BLOCKS = (0, 6, 12, 18)
@@ -554,26 +555,30 @@ def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
         land in the parameters' ``.grad``."""
         frames, captions = batch["frames"], batch["caption"]
         mark("teacher")
-        t = teacher_targets(batch)
+        with span("rtvc.train.teacher"):
+            t = teacher_targets(batch)
         mark("student")
-        with draws():
+        with span("rtvc.train.student_forward"), draws():
             outs = student.distill_forward(
                 frames, captions, generator=generator, need_fmap=need_fmap,
                 need_visual=need_visual, need_decoder=need_decoder)
-        losses = distillation_losses(
-            student_logits=outs["logits"], teacher_logits=t["teacher_logits"],
-            targets=captions, weights=weights,
-            student_proj_means=outs.get("proj_means"),
-            teacher_cls_taps=t.get("teacher_cls_taps"),
-            student_visual=outs.get("student_visual"),
-            teacher_visual=t.get("teacher_visual"),
-            teacher_tokens=t.get("teacher_tokens"),
-            teacher_kd_logits=t.get("teacher_kd_logits"),
-            teacher_kd_valid=t.get("teacher_kd_valid"),
-            student_hidden_proj=outs.get("hidden_proj"),
-            teacher_hidden=t.get("teacher_hidden"),
-            teacher_prefix_len=t["prefix_len"], dp_group=dp_group)
-        losses["total"].backward()
+        with span("rtvc.train.losses"):
+            losses = distillation_losses(
+                student_logits=outs["logits"],
+                teacher_logits=t["teacher_logits"],
+                targets=captions, weights=weights,
+                student_proj_means=outs.get("proj_means"),
+                teacher_cls_taps=t.get("teacher_cls_taps"),
+                student_visual=outs.get("student_visual"),
+                teacher_visual=t.get("teacher_visual"),
+                teacher_tokens=t.get("teacher_tokens"),
+                teacher_kd_logits=t.get("teacher_kd_logits"),
+                teacher_kd_valid=t.get("teacher_kd_valid"),
+                student_hidden_proj=outs.get("hidden_proj"),
+                teacher_hidden=t.get("teacher_hidden"),
+                teacher_prefix_len=t["prefix_len"], dp_group=dp_group)
+        with span("rtvc.train.backward"):
+            losses["total"].backward()
         return {k: v.detach() for k, v in losses.items()}
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -581,45 +586,52 @@ def make_train_step(student: nn.Module, teacher: nn.Module, optimizer: Adam,
         if state.model is not student:
             raise ValueError("state.model is not the student this step "
                              "was built for")
-        student.train()
-        params = list(student.parameters())
-        for p in params:
-            p.grad = None
-        if grad_accum <= 1:
-            losses = batch_losses(batch, generator)
-            grads = _float_grads(params)
-        else:
-            bsz = batch["frames"].shape[0]
-            if bsz % grad_accum:
-                raise ValueError(f"grad_accum={grad_accum} must divide "
-                                 f"batch size {bsz}")
-            size = bsz // grad_accum
-            grads, losses = None, {}
-            for i in range(grad_accum):
-                micro = {k: v[i * size:(i + 1) * size]
-                         for k, v in batch.items()}
-                for k, v in batch_losses(micro, generator).items():
-                    losses[k] = losses[k] + v if k in losses else v
-                g = _float_grads(params)
-                grads = g if grads is None else torch._foreach_add(grads, g)
-            inv = 1.0 / grad_accum
-            torch._foreach_mul_(grads, inv)
-            losses = {k: v * inv for k, v in losses.items()}
-        mark("optimizer")
-        if dp > 1:
-            grads = _mean_over(grads, dp_group)
-            names = sorted(losses)
-            means = _mean_over([torch.stack([losses[k].float()
-                                             for k in names])], dp_group)[0]
-            losses = dict(zip(names, means.unbind(0)))
-        grad_norm = _global_norm(grads, sharded, tp_group)
-        optimizer.update(grads, state.opt_state, state.params)
-        with torch.no_grad():
-            for p, master in zip(params, state.params):
-                p.copy_(master)
-        state.step += 1
-        mark("end")
-        return dict(losses, grad_norm=grad_norm)
+        with span("rtvc.train.step"):
+            student.train()
+            params = list(student.parameters())
+            for p in params:
+                p.grad = None
+            if grad_accum <= 1:
+                losses = batch_losses(batch, generator)
+                with span("rtvc.train.grad_cast"):
+                    grads = _float_grads(params)
+            else:
+                bsz = batch["frames"].shape[0]
+                if bsz % grad_accum:
+                    raise ValueError(f"grad_accum={grad_accum} must divide "
+                                     f"batch size {bsz}")
+                size = bsz // grad_accum
+                grads, losses = None, {}
+                for i in range(grad_accum):
+                    micro = {k: v[i * size:(i + 1) * size]
+                             for k, v in batch.items()}
+                    for k, v in batch_losses(micro, generator).items():
+                        losses[k] = losses[k] + v if k in losses else v
+                    with span("rtvc.train.grad_cast"):
+                        g = _float_grads(params)
+                        grads = (g if grads is None
+                                 else torch._foreach_add(grads, g))
+                inv = 1.0 / grad_accum
+                torch._foreach_mul_(grads, inv)
+                losses = {k: v * inv for k, v in losses.items()}
+            mark("optimizer")
+            if dp > 1:
+                with span("rtvc.train.allreduce"):
+                    grads = _mean_over(grads, dp_group)
+                    names = sorted(losses)
+                    means = _mean_over([torch.stack([losses[k].float()
+                                                     for k in names])],
+                                       dp_group)[0]
+                    losses = dict(zip(names, means.unbind(0)))
+            with span("rtvc.train.adam"):
+                grad_norm = _global_norm(grads, sharded, tp_group)
+                optimizer.update(grads, state.opt_state, state.params)
+            with span("rtvc.train.copy_back"), torch.no_grad():
+                for p, master in zip(params, state.params):
+                    p.copy_(master)
+            state.step += 1
+            mark("end")
+            return dict(losses, grad_norm=grad_norm)
 
     return step
 

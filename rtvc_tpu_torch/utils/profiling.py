@@ -1,11 +1,55 @@
-"""Step timers and trace regions: ``rtvc_tpu/utils/profiling.py``.
+"""Step timers, trace regions and the program's spans:
+``rtvc_tpu/utils/profiling.py``, plus :func:`span`.
 
 ``StepTimer.stop(sync_on=...)`` waits for the card before it reads the
 clock (``torch.cuda.synchronize`` on the device of each CUDA tensor in
-``sync_on``), as JAX's waits on ``block_until_ready``. ``profile_trace``
+``sync_on``), as JAX's waits on ``block_until_ready``; a timer made with
+``window=N`` keeps its newest N samples. ``profile_trace``
 wraps a region in a ``torch.profiler`` trace (JAX: a ``jax.profiler``
 trace) and writes it into ``logdir`` as a Chrome trace (open it in
 ``chrome://tracing`` or Perfetto).
+
+:func:`span` marks a part of the program as a ``torch.profiler`` range,
+so that it lands in the same trace as the operators and kernels, on the
+profiler's clock. It is on exactly while a profiler records, on any
+thread: ``profile_trace`` (which records every thread, the server's
+scheduler and replica threads included), an operator's own
+``torch.profiler.profile`` (the same with ``experimental_config=
+_ExperimentalConfig(profile_all_threads=True)``), or a benchmark's
+traced slice. Otherwise it returns one shared no-op context, at the cost
+of one read of a flag. The gate is ``torch.autograd.profiler.
+_is_profiler_enabled``, which the profiler sets for the process:
+``torch._C._autograd._profiler_enabled()`` is per thread and reads False
+on a second thread while a profile is open. A ``record_function`` costs
+about 10 µs of an x86 server core even with no profiler open, hence the
+gate. While a profiler records, a range costs the host 12-15 µs
+(H100 machine, PyTorch 2.11): under 1% of a caption or train step.
+Nothing reaches an exported or compiled graph: ``export.py`` traces with
+no profiler open, and an export under one drops the ranges.
+
+The spans, all named ``rtvc.*`` (the operators are ``rtvc::*``), each
+inside the one above it:
+
+- ``serving.make_caption_step``: ``rtvc.caption.step`` >
+  ``rtvc.caption.preprocess``; ``decode.student_greedy`` /
+  ``student_beam``: ``rtvc.decode.encode``, one ``rtvc.decode.token`` a
+  decoded token > ``rtvc.decode.stop_wait`` (the read-back of the
+  all-rows-SEP test; greedy with ``host_stop`` only);
+- ``real_time_inference.StreamingCaptioner.caption``:
+  ``rtvc.stream.caption`` > ``rtvc.stream.h2d``, the step,
+  ``rtvc.stream.readback``, ``rtvc.stream.detokenize``;
+- ``serving.BatchCaptionServer``'s scheduler thread: ``rtvc.serve.wait``
+  (nothing pending), ``rtvc.serve.linger`` (the ``max_wait_ms``
+  coalescing wait), ``rtvc.serve.batch`` > ``rtvc.serve.assemble`` >
+  ``rtvc.serve.row`` a real row, ``rtvc.serve.place`` (host to device),
+  the step, ``rtvc.serve.readback``, ``rtvc.serve.resolve`` (tokenizer
+  and futures); with dp replicas on their own threads, each thread's step
+  and read-back;
+- ``train.make_train_step``: ``rtvc.train.step`` > ``rtvc.train.teacher``,
+  ``rtvc.train.student_forward``, ``rtvc.train.losses``,
+  ``rtvc.train.backward``, ``rtvc.train.grad_cast`` (a microbatch each),
+  ``rtvc.train.allreduce`` (dp > 1), ``rtvc.train.adam``,
+  ``rtvc.train.copy_back``.
 """
 
 from __future__ import annotations
@@ -13,10 +57,22 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Any, Iterator, List, Optional
+from collections import deque
+from typing import Any, Deque, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    records, else a shared no-op context (module docstring)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _synchronize(tree: Any) -> None:
@@ -34,9 +90,13 @@ def _synchronize(tree: Any) -> None:
 
 
 class StepTimer:
-    def __init__(self, name: str = "step"):
+    """Durations of a repeated step; with ``window``, the newest
+    ``window`` of them (``summary`` then skips the oldest held)."""
+
+    def __init__(self, name: str = "step", window: Optional[int] = None):
         self.name = name
-        self.durations: List[float] = []
+        self.durations: Union[List[float], Deque[float]] = (
+            deque(maxlen=window) if window else [])
         self._t0: Optional[float] = None
 
     def start(self) -> None:
@@ -56,7 +116,8 @@ class StepTimer:
         self.stop(sync_on_result)
 
     def summary(self, skip_warmup: int = 1) -> dict:
-        d = np.asarray(self.durations[skip_warmup:] or self.durations)
+        held = list(self.durations)
+        d = np.asarray(held[skip_warmup:] or held)
         return {
             f"{self.name}_mean_s": float(d.mean()),
             f"{self.name}_p50_s": float(np.percentile(d, 50)),
@@ -65,10 +126,20 @@ class StepTimer:
         }
 
 
+def _all_threads():
+    """Kineto's option to record the operators and spans of every
+    thread, where this PyTorch has it."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 @contextlib.contextmanager
 def profile_trace(logdir: str, enabled: bool = True) -> Iterator[None]:
-    """A ``torch.profiler`` region over the host and, where there is one,
-    the card; on exit its Chrome trace is written to
+    """A ``torch.profiler`` region over the host's threads and, where
+    there is one, the card; on exit its Chrome trace is written to
     ``logdir/trace_<pid>_<ns>.json``."""
     if not enabled:
         yield
@@ -78,7 +149,8 @@ def profile_trace(logdir: str, enabled: bool = True) -> Iterator[None]:
     activities = [a for a in torch.profiler.supported_activities()
                   if a in wanted]
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities,
+                                experimental_config=_all_threads()) as prof:
         yield
     prof.export_chrome_trace(os.path.join(
         logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
