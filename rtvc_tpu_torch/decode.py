@@ -8,7 +8,11 @@ Counterpart of ``student_greedy``, ``student_beam``, ``teacher_beam`` and
 back from the device per token.
 
 ``student_greedy`` (reference model.py:156-187) runs the student with
-caches of ``1 + max_len`` slots. The semantics are the reference's:
+caches of ``1 + max_len`` slots from ``model.decode_caches``, held for the
+whole caption: on the card in eval mode each ``decode_step`` then replays
+one CUDA graph of the step's body (``models/decode_graph.py``), and the
+argmax, the token write and the stop's read-back stay eager. The
+semantics are the reference's:
 
 - the self-attention key mask is ``(pos <= i) & (tokens != 0)``: a
   generated pad id 0 drops out of later steps, as the reference's
@@ -61,28 +65,28 @@ def student_greedy(model: StudentCandidateV1, frames: torch.Tensor,
         _, memory = model.forward_image_enc(frames)
     b = frames.shape[0]
     total = 1 + max_len
-    caches = model.init_cache(b, total, memory)
     tokens = torch.zeros((b, total), dtype=torch.int32, device=memory.device)
     tokens[:, 0] = model.cls_token_id
     pos = torch.arange(total, device=memory.device)[None, :]
     done = None if host_stop else torch.zeros((), dtype=torch.bool,
                                               device=memory.device)
-    for i in range(max_len):
-        with span("rtvc.decode.token"):
-            kv_mask = (pos <= i) & (tokens != 0)
-            logits, caches = model.decode_step(tokens[:, i], i, caches,
-                                               kv_mask, vocab_w8=vocab_w8)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-            stop = (nxt == model.sep_token_id).all()
-            if host_stop:
-                tokens[:, i + 1] = nxt
-                with span("rtvc.decode.stop_wait"):
-                    stopped = bool(stop)
-                if stopped:
-                    break
-            else:
-                tokens[:, i + 1] = torch.where(done, 0, nxt)
-                done = done | stop
+    with model.decode_caches(b, total, memory, vocab_w8) as caches:
+        for i in range(max_len):
+            with span("rtvc.decode.token"):
+                kv_mask = (pos <= i) & (tokens != 0)
+                logits, caches = model.decode_step(tokens[:, i], i, caches,
+                                                   kv_mask, vocab_w8=vocab_w8)
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                stop = (nxt == model.sep_token_id).all()
+                if host_stop:
+                    tokens[:, i + 1] = nxt
+                    with span("rtvc.decode.stop_wait"):
+                        stopped = bool(stop)
+                    if stopped:
+                        break
+                else:
+                    tokens[:, i + 1] = torch.where(done, 0, nxt)
+                    done = done | stop
     return tokens
 
 

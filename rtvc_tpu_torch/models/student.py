@@ -18,7 +18,10 @@ Kept from the reference and the JAX model:
 - :meth:`StudentCandidateV1.decode_step` runs one token against a KV cache
   preallocated by :meth:`~StudentCandidateV1.init_cache`; unlike JAX it
   writes the new key and value into the cache in place. With ``vocab_w8``
-  the vocab projection runs on kernel K3.
+  the vocab projection runs on kernel K3. :meth:`~StudentCandidateV1.
+  decode_caches` gives a caption its caches; on the card in eval mode
+  they belong to a workspace whose steps replay one CUDA graph a
+  position (:mod:`.decode_graph`).
 
 The distillation heads are built (their weights travel with a checkpoint)
 but the caption step never calls them; ``distill_forward`` returns what
@@ -49,6 +52,7 @@ from ..ops.attention import multi_head_attention
 from ..ops.dropout import dropout
 from ..ops.int8_gemm import w8_dense
 from ..ops.layernorm import FusedLayerNorm
+from .decode_graph import DecodeGraphs
 from .layers import PositionalEncoding
 from .tinyvit import BatchNorm2d, TinyViT, stage_means
 
@@ -257,6 +261,7 @@ class StudentCandidateV1(nn.Module):
         self.upsample = nn.Linear(num_frames, teacher_num_tokens)
         self.project = nn.Linear(d_model, teacher_visual_dim)
         self.project_decoder = nn.Linear(d_model, teacher_hidden)
+        self.decode_graphs = DecodeGraphs()
 
     # ---- encoder ----------------------------------------------------------
     def forward_image_enc(self, x: torch.Tensor,
@@ -336,6 +341,15 @@ class StudentCandidateV1(nn.Module):
         return [layer.init_cache(batch, max_len, memory)
                 for layer in self.decoder["layers"]]
 
+    def decode_caches(self, batch: int, max_len: int, memory: torch.Tensor,
+                      vocab_w8: Optional[Dict[str, torch.Tensor]] = None):
+        """Context manager: the caches of one caption, held until the block
+        ends. On the card in eval mode they are a decode workspace's, whose
+        positions :meth:`decode_step` replays as CUDA graphs; elsewhere
+        ``init_cache``'s (:mod:`.decode_graph`)."""
+        return self.decode_graphs.caches(self, batch, max_len, memory,
+                                         vocab_w8)
+
     def decode_step(self, token: torch.Tensor, index: int,
                     caches: List[Cache],
                     kv_mask: Optional[torch.Tensor] = None,
@@ -344,15 +358,32 @@ class StudentCandidateV1(nn.Module):
         """``token [B]`` at position ``index`` → (logits ``[B, V]``, the
         caches, updated in place). ``vocab_w8`` (from
         :func:`ops.quantization.quantize_vocab_head`) sends the vocab
-        projection through K3."""
+        projection through K3. On a decode workspace's caches the step
+        replays the position's CUDA graph; the logits are the caller's
+        either way, never overwritten by a later step."""
+        ws = getattr(caches, "workspace", None)
+        if ws is not None:
+            logits = ws.replay(token, index, kv_mask, vocab_w8)
+            if logits is not None:
+                self.decode_graphs.replays += 1
+                return logits, caches
+        self.decode_graphs.eager += 1
+        return self.decode_body(token, index, caches, kv_mask,
+                                vocab_w8), caches
+
+    def decode_body(self, token: torch.Tensor, index: int,
+                    caches: List[Cache], kv_mask: Optional[torch.Tensor],
+                    vocab_w8: Optional[Dict[str, torch.Tensor]]
+                    ) -> torch.Tensor:
+        """:meth:`decode_step`'s arithmetic, run eagerly or captured."""
         x = self._embed_tokens(token[:, None], offset=index)
         for layer, cache in zip(self.decoder["layers"], caches):
             x = layer.decode_step(x, cache, index, kv_mask=kv_mask)
         if vocab_w8 is not None:
             logits = w8_dense(x[:, 0], vocab_w8["wq"], vocab_w8["sw"],
                               vocab_w8["bias"])
-            return logits[:, :self.vocab_size], caches
-        return self.linear(x)[:, 0], caches
+            return logits[:, :self.vocab_size]
+        return self.linear(x)[:, 0]
 
 
 def student_from_config(cfg: Config, input_size: int = 224,

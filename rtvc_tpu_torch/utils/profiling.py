@@ -33,8 +33,10 @@ inside the one above it:
 - ``serving.make_caption_step``: ``rtvc.caption.step`` >
   ``rtvc.caption.preprocess``; ``decode.student_greedy`` /
   ``student_beam``: ``rtvc.decode.encode``, one ``rtvc.decode.token`` a
-  decoded token > ``rtvc.decode.stop_wait`` (the read-back of the
-  all-rows-SEP test; greedy with ``host_stop`` only);
+  decoded token > ``rtvc.decode.graph`` (the replay of the position's
+  CUDA graph, where the step takes one: ``models/decode_graph.py``) and
+  ``rtvc.decode.stop_wait`` (the read-back of the all-rows-SEP test;
+  greedy with ``host_stop`` only);
 - ``real_time_inference.StreamingCaptioner.caption``:
   ``rtvc.stream.caption`` > ``rtvc.stream.h2d``, the step,
   ``rtvc.stream.readback``, ``rtvc.stream.detokenize``;
