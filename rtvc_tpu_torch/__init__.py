@@ -60,6 +60,9 @@ counterpart of the same name there:
 - ``pruning``, ``pruning_test`` ➜ the same modules (global L1 pruning in
                           JAX's tie order, the pruned model's test epoch)
 
+``models.moonvit``, ``models.kimi_lm``, ``models.kimi_vl`` and
+``models.kimi_vl_reference`` have no counterpart either: Kimi-VL-A3B as a
+captioner on the same caption path, and its plain float32 reference.
 ``profile_teacher`` has no counterpart: it prints the teacher's device time
 by op on a card; nor has ``ops.dropout``, the train step's random draws
 from an explicit CPU ``torch.Generator``. Kernels live in ``csrc/`` and are compiled by ``_build``

@@ -40,6 +40,10 @@ jax. A test holds every field here equal to its JAX counterpart:
   :class:`_DictView` s with the reference's UPPER keys) and
   :func:`from_dict`; the six ported ``tpu`` fields sit on ``Config``
   itself and are read and overridden under ``"TPU"`` / ``"tpu"`` as JAX's;
+- :class:`MoonViTConfig`, :class:`KimiVLConfig` and
+  :func:`kimi_vl_a3b_config` have no JAX counterpart: Kimi-VL-A3B-Instruct,
+  the vision-language captioner the port serves beside the student
+  (``models/kimi_vl.py``);
 - not ported: ``tpu.steps_per_dispatch`` (a scan over batches that
   measured slower on the TPU; CUDA graphs are the GPU's analogue).
 """
@@ -153,6 +157,66 @@ class GITConfig:
     clip: CLIPViTConfig = clip_vit_l14_config()
     dtype: torch.dtype = torch.float32
     quantized: bool = False  # W8A8 textual-head Linears
+
+
+@dataclass(frozen=True)
+class MoonViTConfig:
+    """MoonViT, Kimi-VL's image tower, and its 2×2 merge. The widths are
+    SigLIP-so400m-patch14's, from which MoonViT was initialised (the
+    published config gives none): pre-LayerNorm blocks with qkv and output
+    biases, a tanh-GELU MLP, 2D RoPE on q and k, a learned ``pos_grid``²
+    position table resized bicubically to the patch grid."""
+    image_size: int = 448
+    patch_size: int = 14
+    width: int = 1152
+    layers: int = 27
+    heads: int = 16
+    mlp: int = 4304
+    pos_grid: int = 64
+    merge: int = 2
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+
+
+@dataclass(frozen=True)
+class KimiVLConfig:
+    """Kimi-VL-A3B-Instruct (moonshotai/Kimi-VL-A3B-Instruct config.json):
+    MoonViT and an MLP projector in front of a DeepSeek-V3-style language
+    model (MLA without a q latent, sigmoid-scored experts with a correction
+    bias, shared experts, leading dense layers). ``eos_token_id`` is the
+    tokenizer's, assumed; ``pixel_mean`` / ``pixel_std`` are the
+    processor's 0.5 / 0.5."""
+    vision: MoonViTConfig = field(default_factory=MoonViTConfig)
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    routed_scaling_factor: float = 2.446
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True
+    first_k_dense_replace: int = 1
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    max_position_embeddings: int = 131072
+    eos_token_id: int = 163585
+    pixel_mean: Tuple[float, ...] = (0.5, 0.5, 0.5)
+    pixel_std: Tuple[float, ...] = (0.5, 0.5, 0.5)
+    dtype: torch.dtype = torch.bfloat16
+
+
+def kimi_vl_a3b_config(**overrides) -> KimiVLConfig:
+    """Kimi-VL-A3B-Instruct at its published widths (16.4 B parameters)."""
+    return dataclasses.replace(KimiVLConfig(), **overrides)
 
 
 @dataclass(frozen=True)

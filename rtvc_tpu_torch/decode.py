@@ -35,6 +35,11 @@ samples its candidates (temperature, :func:`top_k_top_p_filtering`, then a
 Gumbel top-k whose noise :func:`gumbel_noise` draws from an explicit CPU
 generator). ``teacher_generate`` wraps it as the reference's teacher
 forward: per-sample captions and beam-consensus logit rows.
+
+``vlm_greedy`` has no JAX counterpart: the greedy decode of the
+vision-language captioner (``models/kimi_vl.py``), a prefill over the
+prompt and the visual tokens, then one decode step a token through the
+latent caches, with :func:`student_greedy`'s spans and all-rows stop.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from .models.git_teacher import Cache, GITTeacher
+from .models.kimi_vl import KimiVLCaptioner
 from .models.student import StudentCandidateV1
 from .utils.profiling import span
 
@@ -87,6 +93,41 @@ def student_greedy(model: StudentCandidateV1, frames: torch.Tensor,
                 else:
                     tokens[:, i + 1] = torch.where(done, 0, nxt)
                     done = done | stop
+    return tokens
+
+
+@torch.inference_mode()
+def vlm_greedy(model: KimiVLCaptioner, frames: torch.Tensor,
+               max_new_tokens: int = 64) -> torch.Tensor:
+    """The vision-language captioner's greedy decode: normalised frames
+    ``[B, F, H, W, 3]`` → int32 ``[B, max_new_tokens]``, the generated ids,
+    0 after an early stop. The prefill's logits give the first token; each
+    later one comes from a ``decode_step`` through the latent caches.
+    Decoding stops early only when every row emits EOS at the same step,
+    one read-back a token, as :func:`student_greedy` stops on SEP."""
+    with span("rtvc.decode.encode"):
+        visual = model.encode(frames)
+    logits, state = model.prefill(visual, max_new_tokens)
+    b = frames.shape[0]
+    tokens = torch.zeros((b, max_new_tokens), dtype=torch.int32,
+                         device=logits.device)
+    eos = model.eos_token_id
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    tokens[:, 0] = nxt
+    with span("rtvc.decode.stop_wait"):
+        if bool((nxt == eos).all()):
+            return tokens
+    for i in range(1, max_new_tokens):
+        with span("rtvc.decode.token"):
+            logits = model.decode_step(tokens[:, i - 1],
+                                       state.length + i - 1, state)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            tokens[:, i] = nxt
+            stop = (nxt == eos).all()
+            with span("rtvc.decode.stop_wait"):
+                stopped = bool(stop)
+            if stopped:
+                break
     return tokens
 
 

@@ -110,3 +110,15 @@ def save_under_reference_keys(module: nn.Module, attr: str,
 
     module.register_state_dict_post_hook(save)
     module.register_load_state_dict_pre_hook(load)
+
+
+def rotate_pairs(x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding on adjacent pairs: ``(x[2j], x[2j+1])`` of the last
+    axis turned by the angle whose cosine and sine are ``cos[..., j]`` and
+    ``sin[..., j]`` (broadcast against ``x``'s leading axes), in float32,
+    returned in ``x.dtype``."""
+    pairs = x.float().unflatten(-1, (-1, 2))
+    a, b = pairs[..., 0], pairs[..., 1]
+    out = torch.stack((a * cos - b * sin, a * sin + b * cos), dim=-1)
+    return out.flatten(-2).to(x.dtype)

@@ -29,9 +29,12 @@ def resized_shape(h: int, w: int, crop_size: int) -> Tuple[int, int]:
 
 
 def clip_preprocess(frames: torch.Tensor, crop_size: int = 224,
-                    bgr_to_rgb: bool = True) -> torch.Tensor:
+                    bgr_to_rgb: bool = True,
+                    mean: Tuple[float, ...] = CLIP_MEAN,
+                    std: Tuple[float, ...] = CLIP_STD) -> torch.Tensor:
     """uint8 ``[N, H, W, 3]`` (BGR, as cv2 decodes) → float32
-    ``[N, crop_size, crop_size, 3]`` on the same device."""
+    ``[N, crop_size, crop_size, 3]`` on the same device, normalised by
+    ``mean`` and ``std`` (CLIP's; Kimi-VL's processor uses 0.5 and 0.5)."""
     n, h, w, c = frames.shape
     x = frames.permute(0, 3, 1, 2).float() / 255.0
     new_h, new_w = resized_shape(h, w, crop_size)
@@ -43,8 +46,8 @@ def clip_preprocess(frames: torch.Tensor, crop_size: int = 224,
     x = x[:, :, top:top + crop_size, left:left + crop_size]
     if bgr_to_rgb:
         x = x.flip(1)
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
+    mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    std = torch.tensor(std, dtype=torch.float32, device=x.device)
     x = (x - mean[:, None, None]) / std[:, None, None]
     return x.permute(0, 2, 3, 1)
 

@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from .config import Config, cfg as default_cfg
-from .decode import student_beam, student_greedy
+from .decode import student_beam, student_greedy, vlm_greedy
+from .models.kimi_vl import KimiVLCaptioner
 from .models.student import StudentCandidateV1
 from .ops.preprocess import clip_preprocess
 from .ops.quantization import quantize_vocab_head
@@ -82,6 +83,9 @@ def make_caption_step(student: StudentCandidateV1, *, max_len: int = 25,
     program (``export.py``) sets it to False, so that greedy reads nothing
     back. The step runs under its own ``torch.inference_mode()``, which
     is per thread, so any thread may call it."""
+    if isinstance(student, KimiVLCaptioner):
+        return _vlm_caption_step(student, max_len=max_len, beam=beam,
+                                 vocab_int8=vocab_int8, host_stop=host_stop)
     if vocab_int8 and getattr(student, "vocab_w8", None) is None:
         raise ValueError("vocab_int8 needs a student from with_vocab_w8()")
 
@@ -100,6 +104,34 @@ def make_caption_step(student: StudentCandidateV1, *, max_len: int = 25,
                                     vocab_w8=vocab_w8)
             return student_greedy(student, proc, max_len=max_len,
                                   vocab_w8=vocab_w8, host_stop=host_stop)
+
+    return step
+
+
+def _vlm_caption_step(model: KimiVLCaptioner, *, max_len: int, beam: int,
+                      vocab_int8: bool, host_stop: bool
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """:func:`make_caption_step` for the vision-language captioner: the
+    frames preprocessed at the model's size and normalisation, then
+    :func:`decode.vlm_greedy` to ``max_len`` new tokens. Rows are the
+    generated ids alone, ``[B, max_len]`` (no leading CLS). One call at a
+    time: on a card, calls of one batch size share that shape's latent
+    caches and decode graphs."""
+    if beam or vocab_int8 or not host_stop:
+        raise ValueError("the vision-language captioner decodes greedily, "
+                         "with the bf16 head and a host stop")
+
+    @torch.inference_mode()
+    def step(frames_u8: torch.Tensor) -> torch.Tensor:
+        with span("rtvc.caption.step"):
+            b, w = frames_u8.shape[:2]
+            with span("rtvc.caption.preprocess"):
+                proc = clip_preprocess(
+                    frames_u8.reshape((b * w,) + frames_u8.shape[2:]),
+                    crop_size=model.image_size, mean=model.pixel_mean,
+                    std=model.pixel_std)
+                proc = proc.reshape((b, w) + proc.shape[1:])
+            return vlm_greedy(model, proc, max_new_tokens=max_len)
 
     return step
 
@@ -249,7 +281,10 @@ class BatchCaptionServer:
     ----------
     student, tokenizer:
         the student (its weights, on its device) and the tokenizer that
-        turns token rows into text.
+        turns token rows into text; or the vision-language captioner
+        (``models.kimi_vl``), whose rows are cut at its EOS, and None for
+        the tokenizer while its files are not at hand: futures then give
+        ``tokens()`` and no text.
     max_batch:
         largest batch one step processes.
     max_wait_ms:
@@ -291,6 +326,7 @@ class BatchCaptionServer:
             raise ValueError("max_batch must be >= 1")
         self.student = student
         self.tokenizer = tokenizer
+        self.stop_id = int(getattr(student, "eos_token_id", SEP_TOKEN_ID))
         self.vocab_int8 = bool(vocab_int8)
         self.mesh = mesh
         self._dp = int(mesh.shape.get("dp", 1)) if mesh is not None else 1
@@ -423,7 +459,15 @@ class BatchCaptionServer:
     def stats(self) -> Dict[str, float]:
         """Counters, and percentiles over the last ``STATS_WINDOW``
         requests of the latency (submit → resolved) and the queue wait
-        (submit → taken by the scheduler)."""
+        (submit → taken by the scheduler); for a captioner with routed
+        experts, ``expert_load_max_over_mean`` (its counters, read from the
+        card here)."""
+        extra: Dict[str, float] = {}
+        if hasattr(self.student, "expert_load"):
+            load = self.student.expert_load().double()
+            if load.sum() > 0:
+                extra["expert_load_max_over_mean"] = float(
+                    (load.max(1).values / load.mean(1)).max())
         with self._stats_lock:
             out: Dict[str, float] = {
                 "served": float(self._served),
@@ -444,6 +488,7 @@ class BatchCaptionServer:
                     and self._t_last > self._t_first):
                 out["throughput_windows_per_s"] = (
                     self._served / (self._t_last - self._t_first))
+            out.update(extra)
             return out
 
     def close(self, timeout: float = 5.0) -> None:
@@ -531,9 +576,10 @@ class BatchCaptionServer:
                         self._served += n
                     with span("rtvc.serve.resolve"):
                         for i, req in enumerate(batch):
-                            row = truncate_at_sep(tokens[i])
-                            text = self.tokenizer.decode(
-                                row, skip_special_tokens=True)
+                            row = truncate_at_sep(tokens[i], self.stop_id)
+                            text = None if self.tokenizer is None else \
+                                self.tokenizer.decode(
+                                    row, skip_special_tokens=True)
                             req.future._resolve(text, row)
                             with self._stats_lock:
                                 lat = req.future.latency_s

@@ -37,6 +37,16 @@ inside the one above it:
   CUDA graph, where the step takes one: ``models/decode_graph.py``) and
   ``rtvc.decode.stop_wait`` (the read-back of the all-rows-SEP test;
   greedy with ``host_stop`` only);
+- the vision-language captioner (``models/kimi_vl.py``, driven by
+  ``decode.vlm_greedy`` under the same caption step): ``rtvc.vlm.vision``
+  (MoonViT and the projector) inside ``rtvc.decode.encode``;
+  ``rtvc.vlm.prefill`` (the language model over the prompt); one
+  ``rtvc.decode.token`` a decode step, with its ``rtvc.decode.stop_wait``
+  (the first token's stop wait follows the prefill on its own); inside
+  either, ``rtvc.vlm.mla_decode`` (one layer's absorbed attention at one
+  position) and ``rtvc.vlm.experts`` (one MoE layer's routed experts),
+  in a graphed decode step both inside ``rtvc.decode.graph`` (the replay
+  of the step's per-layer graphs, ``models/kimi_lm.DecodeGraphs``);
 - ``real_time_inference.StreamingCaptioner.caption``:
   ``rtvc.stream.caption`` > ``rtvc.stream.h2d``, the step,
   ``rtvc.stream.readback``, ``rtvc.stream.detokenize``;
