@@ -49,6 +49,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 
 from ..utils.profiling import span
+from .graphs import GraphRegistry, add_counts, capture, capturing, graphs_apply
 
 Cache = Dict[str, torch.Tensor]
 
@@ -59,26 +60,6 @@ def _launch_counters() -> List[Tuple[object, str]]:
     from ..ops import int8_gemm, layernorm
     return [(layernorm.layer_norm, "launches"),
             (int8_gemm.w8_matmul, "launches")]
-
-
-def _read_counts(counters) -> List[int]:
-    return [getattr(fn, attr) for fn, attr in counters]
-
-
-def _add_counts(counters, deltas: List[int], sign: int = 1) -> None:
-    for (fn, attr), d in zip(counters, deltas):
-        if d:
-            setattr(fn, attr, getattr(fn, attr) + sign * d)
-
-
-def graphs_apply(model: torch.nn.Module, memory: torch.Tensor) -> bool:
-    """Whether a decode over ``memory`` may replay graphs: real CUDA
-    tensors, no compiler or export tracing, no stream capture under way,
-    eval mode and grad off."""
-    return (type(memory) is torch.Tensor and memory.is_cuda
-            and not model.training and not torch.is_grad_enabled()
-            and not torch.compiler.is_compiling()
-            and not torch.cuda.is_current_stream_capturing())
 
 
 def _signature(model: torch.nn.Module,
@@ -127,37 +108,20 @@ class DecodeWorkspace:
 
     def capture(self, model: torch.nn.Module) -> int:
         """(Re)capture a graph of the decode body for every position but
-        the last, after one eager warm-up, on a side stream; the launch
-        counts are left as they were. Returns the graphs captured."""
+        the last, after one eager warm-up (:func:`.graphs.capturing`).
+        Returns the graphs captured."""
         for g in self.graphs:
             g.reset()
         self.graphs, self.logits, self.deltas = [], [], []
-        dev = self.token.device
-        start = _read_counts(self.counters)
         pool = torch.cuda.graph_pool_handle()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        try:
-            with torch.cuda.device(dev), torch.cuda.stream(side):
-                self._body(model, 0)
-                for i in range(self.mask.shape[1] - 1):
-                    before = _read_counts(self.counters)
-                    graph = torch.cuda.CUDAGraph()
-                    graph.capture_begin(pool=pool,
-                                        capture_error_mode="thread_local")
-                    try:
-                        logits = self._body(model, i)
-                    finally:
-                        graph.capture_end()
-                    after = _read_counts(self.counters)
-                    self.graphs.append(graph)
-                    self.logits.append(logits)
-                    self.deltas.append([a - b for a, b in zip(after, before)])
-        finally:
-            torch.cuda.current_stream(dev).wait_stream(side)
-            end = _read_counts(self.counters)
-            _add_counts(self.counters, [e - s for e, s in zip(end, start)],
-                        -1)
+        with capturing(self.token.device, self.counters):
+            self._body(model, 0)
+            for i in range(self.mask.shape[1] - 1):
+                graph, logits, deltas = capture(
+                    lambda: self._body(model, i), pool, self.counters)
+                self.graphs.append(graph)
+                self.logits.append(logits)
+                self.deltas.append(deltas)
         return len(self.graphs)
 
     def _body(self, model: torch.nn.Module, index: int) -> torch.Tensor:
@@ -194,31 +158,13 @@ class DecodeWorkspace:
         self.mask.copy_(kv_mask)
         with span("rtvc.decode.graph"):
             self.graphs[index].replay()
-        _add_counts(self.counters, self.deltas[index])
+        add_counts(self.counters, self.deltas[index])
         return self.logits[index].clone()
 
 
-class DecodeGraphs:
-    """A model's decode workspaces and counts: ``replays`` (decode steps
-    that replayed a graph), ``eager`` (decode steps that ran the body) and
-    ``captures`` (graphs captured). A copy of the model (``deepcopy``,
-    pickling) starts with none."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._workspaces: Dict[tuple, DecodeWorkspace] = {}
-        self.replays = 0
-        self.eager = 0
-        self.captures = 0
-
-    def __deepcopy__(self, memo) -> "DecodeGraphs":
-        return DecodeGraphs()
-
-    def __getstate__(self) -> dict:
-        return {}
-
-    def __setstate__(self, state: dict) -> None:
-        self.__init__()
+class DecodeGraphs(GraphRegistry):
+    """A model's decode workspaces and counts (:class:`.graphs.
+    GraphRegistry`): ``replays`` and ``eager`` count decode steps."""
 
     def _take(self, model: torch.nn.Module, batch: int, slots: int,
               memory: torch.Tensor,
@@ -231,17 +177,10 @@ class DecodeGraphs:
             return None
         key = (memory.device, memory.dtype, batch, slots, memory.shape[1],
                vocab_w8 is not None)
-        if not self._lock.acquire(blocking=False):
+        ws = self.checkout(key, lambda: DecodeWorkspace(
+            model, batch, slots, memory, vocab_w8))
+        if ws is None:
             return None
-        try:
-            ws = self._workspaces.get(key)
-            if ws is None:
-                ws = self._workspaces[key] = DecodeWorkspace(
-                    model, batch, slots, memory, vocab_w8)
-            if not ws.lock.acquire(blocking=False):
-                return None
-        finally:
-            self._lock.release()
         try:
             ws.vocab_w8 = vocab_w8
             signature = _signature(model, vocab_w8)

@@ -15,6 +15,9 @@ Kept from the reference and the JAX model:
 - the decoder layer is post-norm (``nn.TransformerDecoderLayer``
   semantics: self-attn → add+LN → cross-attn → add+LN → ReLU FFN →
   add+LN), its norms on kernel K2;
+- :meth:`StudentCandidateV1.forward_image_enc` on the card in eval mode
+  with grad off replays one CUDA graph of the encoder per input shape
+  (:mod:`.encode_graph`);
 - :meth:`StudentCandidateV1.decode_step` runs one token against a KV cache
   preallocated by :meth:`~StudentCandidateV1.init_cache`; unlike JAX it
   writes the new key and value into the cache in place. With ``vocab_w8``
@@ -53,6 +56,7 @@ from ..ops.dropout import dropout
 from ..ops.int8_gemm import w8_dense
 from ..ops.layernorm import FusedLayerNorm
 from .decode_graph import DecodeGraphs
+from .encode_graph import EncodeGraphs
 from .layers import PositionalEncoding
 from .tinyvit import BatchNorm2d, TinyViT, stage_means
 
@@ -262,6 +266,7 @@ class StudentCandidateV1(nn.Module):
         self.project = nn.Linear(d_model, teacher_visual_dim)
         self.project_decoder = nn.Linear(d_model, teacher_hidden)
         self.decode_graphs = DecodeGraphs()
+        self.encode_graphs = EncodeGraphs()
 
     # ---- encoder ----------------------------------------------------------
     def forward_image_enc(self, x: torch.Tensor,
@@ -269,9 +274,22 @@ class StudentCandidateV1(nn.Module):
                           ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """``x [B, F, H, W, 3]`` (or ``[B, F, 3, H, W]``) → (four NHWC stage
         maps of the B·F frames, memory ``[B, F, C]``: the last map's
-        spatial mean)."""
+        spatial mean). On the card in eval mode with grad off the body
+        replays one CUDA graph of the input's shape (:mod:`.encode_graph`);
+        the outputs are the caller's either way."""
         if x.shape[2] == 3 and x.shape[-1] != 3:
             x = x.permute(0, 1, 3, 4, 2)
+        out = self.encode_graphs.run(self, x)
+        if out is not None:
+            return out
+        self.encode_graphs.eager += 1
+        return self.encode_body(x, generator)
+
+    def encode_body(self, x: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """:meth:`forward_image_enc`'s arithmetic on NHWC frames ``x [B, F,
+        H, W, 3]``, run eagerly or captured."""
         b, f = x.shape[:2]
         enc, flat = self.image_encoder["model"], x.reshape((b * f,)
                                                            + x.shape[2:])

@@ -32,7 +32,9 @@ inside the one above it:
 
 - ``serving.make_caption_step``: ``rtvc.caption.step`` >
   ``rtvc.caption.preprocess``; ``decode.student_greedy`` /
-  ``student_beam``: ``rtvc.decode.encode``, one ``rtvc.decode.token`` a
+  ``student_beam``: ``rtvc.decode.encode`` > ``rtvc.encode.graph`` (the
+  replay of the encoder's CUDA graph, where the call takes one:
+  ``models/encode_graph.py``), one ``rtvc.decode.token`` a
   decoded token > ``rtvc.decode.graph`` (the replay of the position's
   CUDA graph, where the step takes one: ``models/decode_graph.py``) and
   ``rtvc.decode.stop_wait`` (the read-back of the all-rows-SEP test;
