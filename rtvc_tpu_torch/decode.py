@@ -104,31 +104,36 @@ def vlm_greedy(model: KimiVLCaptioner, frames: torch.Tensor,
     0 after an early stop. The prefill's logits give the first token; each
     later one comes from a ``decode_step`` through the latent caches.
     Decoding stops early only when every row emits EOS at the same step,
-    one read-back a token, as :func:`student_greedy` stops on SEP."""
+    one read-back a token, as :func:`student_greedy` stops on SEP. The
+    prefill's state, and the workspace it may hold, is released at the
+    end."""
     with span("rtvc.decode.encode"):
         visual = model.encode(frames)
     logits, state = model.prefill(visual, max_new_tokens)
-    b = frames.shape[0]
-    tokens = torch.zeros((b, max_new_tokens), dtype=torch.int32,
-                         device=logits.device)
-    eos = model.eos_token_id
-    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-    tokens[:, 0] = nxt
-    with span("rtvc.decode.stop_wait"):
-        if bool((nxt == eos).all()):
-            return tokens
-    for i in range(1, max_new_tokens):
-        with span("rtvc.decode.token"):
-            logits = model.decode_step(tokens[:, i - 1],
-                                       state.length + i - 1, state)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-            tokens[:, i] = nxt
-            stop = (nxt == eos).all()
-            with span("rtvc.decode.stop_wait"):
-                stopped = bool(stop)
-            if stopped:
-                break
-    return tokens
+    try:
+        b = frames.shape[0]
+        tokens = torch.zeros((b, max_new_tokens), dtype=torch.int32,
+                             device=logits.device)
+        eos = model.eos_token_id
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        tokens[:, 0] = nxt
+        with span("rtvc.decode.stop_wait"):
+            if bool((nxt == eos).all()):
+                return tokens
+        for i in range(1, max_new_tokens):
+            with span("rtvc.decode.token"):
+                logits = model.decode_step(tokens[:, i - 1],
+                                           state.length + i - 1, state)
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                tokens[:, i] = nxt
+                stop = (nxt == eos).all()
+                with span("rtvc.decode.stop_wait"):
+                    stopped = bool(stop)
+                if stopped:
+                    break
+        return tokens
+    finally:
+        state.release()
 
 
 def _gather_cache(caches: List[Cache], rows: torch.Tensor) -> List[Cache]:

@@ -19,60 +19,38 @@ eager ones bit for bit. A graph per position keeps the position a Python
 int, as in the eager body (the cache write's slot, the positional
 encoding's row).
 
-The choice is made from what a call can observe (:func:`graphs_apply`):
-CUDA tensors that are real (not an export's or a compiler's stand-ins),
-no compiler or stream capture under way, the model in eval mode with
-grad off, and the workspace free. Otherwise the caller gets caches from
-``init_cache`` and the eager body runs, as it does for the CPU,
-``student_beam`` (fresh gathered caches each step) and a second thread
-while one holds the workspace.
-
-A graph reads its weights at the addresses they had when it was
-captured. :class:`DecodeGraphs` keeps each read tensor's address, dtype,
-shape and strides, checks them once per caption and captures again on
-any change (``.to()``, a reassigned parameter, a new ``vocab_w8`` pack).
-In-place updates (``load_state_dict``, the train step's copy-back) keep
-the storage, so the graphs read the new values.
-
-The kernel wrappers count their launches in Python (``layer_norm.
-launches`` and the like). Warm-up and capture take back what they added,
-and each replay adds what its graph launches, so the counts read as the
-eager path's.
+The choice to replay, the capture, the check of what the graphs read and
+the lock are :mod:`.graphs`'s. Where the graphs do not apply or another
+thread holds the workspace, the caller gets caches from ``init_cache``
+and the eager body runs, as it does for the CPU, ``student_beam`` (fresh
+gathered caches each step) and a second thread. The graphs read the
+modules under ``embed``, ``pos_enc``, ``decoder`` and ``linear`` and the
+``vocab_w8`` pack's tensors (:func:`reads`), checked once a caption.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
+import functools
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch import nn
 
 from ..utils.profiling import span
-from .graphs import GraphRegistry, add_counts, capture, capturing, graphs_apply
+from .graphs import GraphRegistry, Workspace
 
 Cache = Dict[str, torch.Tensor]
 
 
-def _launch_counters() -> List[Tuple[object, str]]:
-    """The launch counts of the kernels the decode body runs, K2 and K3:
-    (wrapper, attribute)."""
-    from ..ops import int8_gemm, layernorm
-    return [(layernorm.layer_norm, "launches"),
-            (int8_gemm.w8_matmul, "launches")]
-
-
-def _signature(model: torch.nn.Module,
-               vocab_w8: Optional[Dict[str, torch.Tensor]]) -> tuple:
-    """Address, dtype, shape and strides of every tensor the decode body
-    reads besides its caches, token and mask."""
-    tensors = [*model.embed.parameters(), *model.pos_enc.buffers(),
-               *model.decoder.parameters(), *model.linear.parameters()]
-    if vocab_w8 is not None:
-        tensors += [vocab_w8[k] for k in sorted(vocab_w8)
-                    if isinstance(vocab_w8[k], torch.Tensor)]
-    return tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
-                 for t in tensors)
+def reads(model: nn.Module, vocab_w8: Optional[Dict[str, torch.Tensor]]
+          ) -> Tuple[List[nn.Module], List[torch.Tensor]]:
+    """The modules and extra tensors the decode body reads besides its
+    caches, token and mask (:class:`.graphs.Captured`)."""
+    pack = [] if vocab_w8 is None else [
+        vocab_w8[k] for k in sorted(vocab_w8)
+        if isinstance(vocab_w8[k], torch.Tensor)]
+    return [model.embed, model.pos_enc, model.decoder, model.linear], pack
 
 
 class WorkspaceCaches(list):
@@ -84,54 +62,37 @@ class WorkspaceCaches(list):
         self.workspace = workspace
 
 
-class DecodeWorkspace:
+class DecodeWorkspace(Workspace):
     """Static buffers and per-position graphs for one (device, dtype,
-    batch, cache slots, memory length, vocab head) of one model. Held by
-    one caption at a time (``lock``)."""
+    batch, cache slots, memory length, vocab head) of one model."""
 
-    def __init__(self, model: torch.nn.Module, batch: int, slots: int,
-                 memory: torch.Tensor,
-                 vocab_w8: Optional[Dict[str, torch.Tensor]]):
-        self.lock = threading.Lock()
-        self.vocab_w8 = vocab_w8
-        self.signature: Optional[tuple] = None
+    def __init__(self, model: nn.Module, batch: int, slots: int,
+                 memory: torch.Tensor):
+        super().__init__(memory.device)
+        self.vocab_w8: Optional[Dict[str, torch.Tensor]] = None
         self.caches = WorkspaceCaches(
             model.init_cache(batch, slots, memory), self)
         self.token = torch.zeros((batch,), dtype=torch.int32,
                                  device=memory.device)
         self.mask = torch.ones((batch, slots), dtype=torch.bool,
                                device=memory.device)
-        self.graphs: List[torch.cuda.CUDAGraph] = []
         self.logits: List[torch.Tensor] = []
-        self.deltas: List[List[int]] = []
-        self.counters = _launch_counters()
 
-    def capture(self, model: torch.nn.Module) -> int:
-        """(Re)capture a graph of the decode body for every position but
-        the last, after one eager warm-up (:func:`.graphs.capturing`).
-        Returns the graphs captured."""
-        for g in self.graphs:
-            g.reset()
-        self.graphs, self.logits, self.deltas = [], [], []
-        pool = torch.cuda.graph_pool_handle()
-        with capturing(self.token.device, self.counters):
-            self._body(model, 0)
-            for i in range(self.mask.shape[1] - 1):
-                graph, logits, deltas = capture(
-                    lambda: self._body(model, i), pool, self.counters)
-                self.graphs.append(graph)
-                self.logits.append(logits)
-                self.deltas.append(deltas)
+    def capture(self, model: nn.Module) -> int:
+        """Capture a graph of the decode body for every position but the
+        last, after one eager warm-up. Returns the graphs captured."""
+        bodies = [functools.partial(self._body, model, i)
+                  for i in range(self.mask.shape[1] - 1)]
+        self.logits = self.capture_graphs(bodies[0], bodies)
         return len(self.graphs)
 
-    def _body(self, model: torch.nn.Module, index: int) -> torch.Tensor:
+    def _body(self, model: nn.Module, index: int) -> torch.Tensor:
         # the class's body, not ``model.decode_step``: whatever wraps that
         # on the instance sees the per-token calls only
         return type(model).decode_body(model, self.token, index, self.caches,
                                        self.mask, self.vocab_w8)
 
-    def load(self, model: torch.nn.Module,
-             memory: torch.Tensor) -> WorkspaceCaches:
+    def load(self, model: nn.Module, memory: torch.Tensor) -> WorkspaceCaches:
         """``init_cache`` into the static caches: self-attention keys and
         values zeroed, the memory's keys and values projected in."""
         for layer, cache in zip(model.decoder["layers"], self.caches):
@@ -157,8 +118,7 @@ class DecodeWorkspace:
         self.token.copy_(token)
         self.mask.copy_(kv_mask)
         with span("rtvc.decode.graph"):
-            self.graphs[index].replay()
-        add_counts(self.counters, self.deltas[index])
+            self.replay_graph(index)
         return self.logits[index].clone()
 
 
@@ -166,46 +126,26 @@ class DecodeGraphs(GraphRegistry):
     """A model's decode workspaces and counts (:class:`.graphs.
     GraphRegistry`): ``replays`` and ``eager`` count decode steps."""
 
-    def _take(self, model: torch.nn.Module, batch: int, slots: int,
-              memory: torch.Tensor,
-              vocab_w8: Optional[Dict[str, torch.Tensor]]
-              ) -> Optional[DecodeWorkspace]:
-        """The workspace of this call's shapes, locked and captured for the
-        model's present weights, or None where the graphs do not apply or
-        another thread holds it."""
-        if not graphs_apply(model, memory):
-            return None
-        key = (memory.device, memory.dtype, batch, slots, memory.shape[1],
-               vocab_w8 is not None)
-        ws = self.checkout(key, lambda: DecodeWorkspace(
-            model, batch, slots, memory, vocab_w8))
-        if ws is None:
-            return None
-        try:
-            ws.vocab_w8 = vocab_w8
-            signature = _signature(model, vocab_w8)
-            if ws.signature != signature:
-                ws.signature = None
-                self.captures += ws.capture(model)
-                ws.signature = signature
-        except BaseException:
-            ws.lock.release()
-            raise
-        return ws
-
     @contextlib.contextmanager
-    def caches(self, model: torch.nn.Module, batch: int, slots: int,
+    def caches(self, model: nn.Module, batch: int, slots: int,
                memory: torch.Tensor,
                vocab_w8: Optional[Dict[str, torch.Tensor]] = None
                ) -> Iterator[List[Cache]]:
         """Caches for one caption of ``batch`` rows and ``slots`` cache
-        slots: a workspace's, held until the block ends, where the graphs
-        apply and it is free, else ``model.init_cache``'s."""
-        ws = self._take(model, batch, slots, memory, vocab_w8)
+        slots: a workspace's, captured for the model's present weights and
+        held until the block ends, where the graphs apply and it is free,
+        else ``model.init_cache``'s."""
+        key = (memory.device, memory.dtype, batch, slots, memory.shape[1],
+               vocab_w8 is not None)
+        ws = self.checkout(model, memory, key, lambda: DecodeWorkspace(
+            model, batch, slots, memory), *reads(model, vocab_w8))
         if ws is None:
             yield model.init_cache(batch, slots, memory)
             return
         try:
+            ws.vocab_w8 = vocab_w8
+            if not ws.graphs:
+                self.captures += ws.capture(model)
             yield ws.load(model, memory)
         finally:
             ws.lock.release()

@@ -25,7 +25,7 @@ causal. The **latent cache** of a layer holds ``[c, k_pe]`` a position,
   ``W_UV``; it reads the cache and never expands it. The position is a
   device tensor and the scores span the whole cache, the slots past the
   position masked, so one CUDA graph of a layer serves every position
-  (:class:`DecodeGraphs`).
+  (:class:`LatentWorkspace`).
 
 **MoE** (:class:`MoE`): ``s = sigmoid(W_g x)`` in float32; the top
 ``num_experts_per_tok`` of ``s + e_score_correction_bias`` are chosen
@@ -41,18 +41,18 @@ loop over the experts, which reads each expert's rows back to the host
 routed tokens of each expert on the device; ``last_route`` is the last
 call's choice.
 
-**Decode graphs** (:class:`DecodeGraphs`). Eager, a decode token issues
+**Decode graphs** (:class:`LatentWorkspace`). Eager, a decode token issues
 about 3,000 launches from Python, several times its device time. On a
-card, for each batch size and cache, two CUDA graphs a layer are captured
-at its first decode, the attention (replayed inside
-``rtvc.vlm.mla_decode``) and the MLP (inside ``rtvc.vlm.experts`` where it
-routes), reading and writing one static residual row and the position;
-each later token replays them in order.
+card, for each (device, dtype, batch, slots), a workspace holds the latent
+caches and two CUDA graphs a layer, captured at its first decode: the
+attention (replayed inside ``rtvc.vlm.mla_decode``) and the MLP (inside
+``rtvc.vlm.experts`` where it routes), reading and writing one static
+residual row and the position; each later token replays them in order.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +60,7 @@ from torch import nn
 
 from ..config import KimiVLConfig
 from ..utils.profiling import span
+from .graphs import Workspace
 from .layers import rotate_pairs
 
 
@@ -329,88 +330,75 @@ class KimiLM(nn.Module):
 
     def decode_step(self, token: torch.Tensor, pos: torch.Tensor,
                     caches: List[torch.Tensor], angles: torch.Tensor,
-                    graphs: Optional["DecodeGraphs"] = None
+                    workspace: Optional["LatentWorkspace"] = None
                     ) -> torch.Tensor:
         """Tokens ``[B]`` at ``pos`` (a long tensor ``[1]``) → logits ``[B,
-        V]``: the layers eager, or ``graphs`` replayed."""
+        V]``: the layers eager, or the ``workspace``'s graphs replayed."""
         x = self.embed_tokens(token)
-        if graphs is not None:
-            x = graphs.run(x, pos)
-        else:
-            for layer, cache in zip(self.layers, caches):
-                x = layer.feed(layer.attend(x, angles, cache, pos))
+        x = (workspace.run(x, pos) if workspace is not None
+             else self.decode_layers(x, pos, caches, angles))
         return self.lm_head(self.norm(x))
 
+    def decode_layers(self, x: torch.Tensor, pos: torch.Tensor,
+                      caches: List[torch.Tensor], angles: torch.Tensor
+                      ) -> torch.Tensor:
+        """The layers of one decode step, eager: rows ``[B, h]`` in and
+        out."""
+        for layer, cache in zip(self.layers, caches):
+            x = layer.feed(layer.attend(x, angles, cache, pos))
+        return x
 
-class DecodeGraphs:
-    """The decode layers of one batch size and one set of latent caches as
-    CUDA graphs: per layer one of the attention and one of the MLP, in one
-    private memory pool, over a static residual row ``x`` and position
-    ``pos``. :meth:`run` copies a step's row and position in and replays
-    them in order inside ``rtvc.decode.graph`` (the student's span of a
-    graphed position, ``models/decode_graph.py``), the attention inside
-    ``rtvc.vlm.mla_decode`` and a MoE layer's MLP inside
-    ``rtvc.vlm.experts``, as the eager body's spans.
 
-    The graphs read their weights, the caches and the RoPE table at the
-    addresses they had at capture (the captioner drops them when a
-    parameter moves). Capture is preceded by one eager pass on a
-    side stream, at the cache's last slot (written again before any decode
-    reads it), whose routed-token counts are taken back. ``routes`` holds
-    each MoE layer's choice of the last replay."""
+class LatentWorkspace(Workspace):
+    """The latent caches and RoPE table of one (device, dtype, batch, slots)
+    and the decode layers over them as CUDA graphs (:mod:`.graphs`): per
+    layer one of the attention and one of the MLP, over a static residual
+    row ``x`` and position ``pos``. :meth:`run` copies a step's row and
+    position in and replays them in order inside ``rtvc.decode.graph``
+    (the student's span of a graphed position, ``models/decode_graph.py``),
+    the attention inside ``rtvc.vlm.mla_decode`` and a MoE layer's MLP
+    inside ``rtvc.vlm.experts``, as the eager body's spans.
 
-    def __init__(self, lm: KimiLM, caches: List[torch.Tensor],
-                 angles: torch.Tensor):
-        ref = caches[0]
-        self.x = torch.zeros((ref.shape[0], lm.cfg.hidden_size),
-                             dtype=ref.dtype, device=ref.device)
-        self.pos = torch.full((1,), ref.shape[1] - 1, dtype=torch.long,
-                              device=ref.device)
-        moes = lm.moe_layers()
-        loads = [m.load.clone() for m in moes]
-        side = torch.cuda.Stream(device=ref.device)
-        side.wait_stream(torch.cuda.current_stream(ref.device))
-        with torch.cuda.stream(side):
-            x = self.x
-            for layer, cache in zip(lm.layers, caches):
-                x = layer.feed(layer.attend(x, angles, cache, self.pos))
-        torch.cuda.current_stream(ref.device).wait_stream(side)
-        for m, load in zip(moes, loads):
-            m.load.copy_(load)
-        self.parts: List[Tuple[torch.cuda.CUDAGraph, Optional[str]]] = []
+    The warm-up is one eager pass at the cache's last slot (written again
+    before any decode reads it); what it adds to each MoE layer's ``load``
+    is taken back. ``routes`` holds each MoE layer's choice of the last
+    replay."""
+
+    def __init__(self, lm: KimiLM, batch: int, slots: int, device, dtype):
+        super().__init__(device, [(m, "load") for m in lm.moe_layers()])
+        self.caches = lm.latent_caches(batch, slots, device, dtype)
+        self.angles = lm.angles(slots, device)
+        self.x = torch.zeros((batch, lm.cfg.hidden_size), dtype=dtype,
+                             device=device)
+        self.pos = torch.full((1,), slots - 1, dtype=torch.long,
+                              device=device)
+        self.spans: List[Optional[str]] = []
         self.routes: List[torch.Tensor] = []
-        pool = None
-        for layer, cache in zip(lm.layers, caches):
-            for name, body in (
-                    ("rtvc.vlm.mla_decode",
-                     lambda: layer.attend(self.x, angles, cache, self.pos)),
-                    ("rtvc.vlm.experts" if isinstance(layer.mlp, MoE)
-                     else None, lambda: layer.feed(self.x))):
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=pool):
-                    self.x.copy_(body())
-                pool = graph.pool()
-                self.parts.append((graph, name))
-            if isinstance(layer.mlp, MoE):
-                self.routes.append(layer.mlp.last_route)
+
+    def capture(self, lm: KimiLM) -> int:
+        """Capture the layers' graphs. Returns the graphs captured."""
+        def bodies():
+            for layer, cache in zip(lm.layers, self.caches):
+                yield lambda: self.x.copy_(
+                    layer.attend(self.x, self.angles, cache, self.pos))
+                yield lambda: self.x.copy_(layer.feed(self.x))
+
+        self.capture_graphs(lambda: lm.decode_layers(
+            self.x, self.pos, self.caches, self.angles), bodies())
+        self.spans = [name for layer in lm.layers for name in (
+            "rtvc.vlm.mla_decode",
+            "rtvc.vlm.experts" if isinstance(layer.mlp, MoE) else None)]
+        self.routes = [m.last_route for m in lm.moe_layers()]
+        return len(self.graphs)
 
     def run(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         with span("rtvc.decode.graph"):
             self.x.copy_(x)
             self.pos.copy_(pos)
-            for graph, name in self.parts:
+            for i, name in enumerate(self.spans):
                 if name is None:
-                    graph.replay()
+                    self.replay_graph(i)
                 else:
                     with span(name):
-                        graph.replay()
+                        self.replay_graph(i)
         return self.x
-
-
-def graphs_apply(x: torch.Tensor, model: nn.Module) -> bool:
-    """Whether a decode over ``x`` may replay graphs: a real CUDA tensor,
-    eval mode, grad off, no compiler tracing or stream capture under way."""
-    return (type(x) is torch.Tensor and x.is_cuda and not model.training
-            and not torch.is_grad_enabled()
-            and not torch.compiler.is_compiling()
-            and not torch.cuda.is_current_stream_capturing())

@@ -11,12 +11,17 @@ through the caches. ``decode.vlm_greedy`` drives both, and
 ``serving.make_caption_step`` / ``BatchCaptionServer`` serve it as they
 serve the student.
 
-On a card in eval mode with grad off, the prefill writes into latent
-caches kept for each (batch, slots) shape, and the decode replays the
-language model's per-layer CUDA graphs over them
-(:class:`.kimi_lm.DecodeGraphs`, captured at the shape's first decode:
-the server's warm-up); elsewhere each call allocates its caches and the
-decode runs eager. Both compute the same products in the same order.
+On a card in eval mode with grad off, the prefill takes the workspace of
+its (device, dtype, batch, slots) from the captioner's ``decode_graphs``
+(:class:`.graphs.GraphRegistry`) and writes into its latent caches, and
+the decode replays the language model's per-layer CUDA graphs over them
+(:class:`.kimi_lm.LatentWorkspace`, captured at the shape's first decode:
+the server's warm-up). The caption holds the workspace until
+:meth:`Prefilled.release`; the graphs read the modules under
+``language_model`` (:func:`reads`), checked at each prefill. Elsewhere,
+and for a second thread while one holds the workspace, each call
+allocates its caches and the decode runs eager. Both compute the same
+products in the same order.
 
 The prompt is a fixed run of token ids (:meth:`set_prompt`); without the
 tokenizer's files there is no chat template and no text. Parameter names
@@ -26,36 +31,39 @@ experts stacked ``[E, out, in]``).
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..config import KimiVLConfig
 from ..utils.profiling import span
-from .kimi_lm import DecodeGraphs, KimiLM, MoE, graphs_apply
+from .graphs import GraphRegistry
+from .kimi_lm import KimiLM, LatentWorkspace, MoE
 from .moonvit import MoonViT, Projector
+
+
+def reads(model: "KimiVLCaptioner"
+          ) -> Tuple[List[nn.Module], List[torch.Tensor]]:
+    """The modules the decode graphs read besides their workspace's
+    buffers (:class:`.graphs.Captured`)."""
+    return [model.language_model], []
 
 
 class Prefilled(NamedTuple):
     """What the decode continues from: each layer's latent cache ``[B,
     slots, kv_lora_rank + qk_rope]``, the RoPE angles of every slot, the
     prompt's length (the first position a decode step writes), and the
-    shape's workspace where the decode replays graphs."""
+    workspace the caption holds where the decode replays graphs."""
     caches: List[torch.Tensor]
     angles: torch.Tensor
     length: int
-    workspace: Optional["Workspace"] = None
+    workspace: Optional[LatentWorkspace] = None
 
-
-class Workspace:
-    """The latent caches and RoPE table of one (batch, slots) shape, kept
-    for the decode graphs that read them (captured at the first decode)."""
-
-    def __init__(self, lm: KimiLM, batch: int, slots: int, device, dtype):
-        self.caches = lm.latent_caches(batch, slots, device, dtype)
-        self.angles = lm.angles(slots, device)
-        self.graphs: Optional[DecodeGraphs] = None
+    def release(self) -> None:
+        """Give the workspace back: the caption is done."""
+        if self.workspace is not None:
+            self.workspace.lock.release()
 
 
 class KimiVLCaptioner(nn.Module):
@@ -74,9 +82,7 @@ class KimiVLCaptioner(nn.Module):
         self.register_buffer("prompt_ids", torch.zeros(0, dtype=torch.long),
                              persistent=False)
         self.media_at = 0
-        # one call at a time: a shape's caches and graphs are shared
-        self._workspaces: Dict[Tuple[int, int], Workspace] = {}
-        self._where: Tuple[int, ...] = ()
+        self.decode_graphs = GraphRegistry()
         self._routes: List[torch.Tensor] = []
 
     def set_prompt(self, ids: Sequence[int], media_at: int) -> None:
@@ -114,7 +120,8 @@ class KimiVLCaptioner(nn.Module):
                 ) -> Tuple[torch.Tensor, Prefilled]:
         """The prompt around ``visual [B, Nv, hidden]`` through the language
         model → (the last position's logits ``[B, V]``, the caches with
-        room for ``new_tokens`` more)."""
+        room for ``new_tokens`` more). The caller releases the state
+        (:meth:`Prefilled.release`)."""
         lm = self.language_model
         with span("rtvc.vlm.prefill"):
             b = visual.shape[0]
@@ -126,23 +133,23 @@ class KimiVLCaptioner(nn.Module):
             if slots > self.cfg.max_position_embeddings:
                 raise ValueError(f"{slots} positions, past the model's "
                                  f"{self.cfg.max_position_embeddings}")
-            ws = None
-            if graphs_apply(x, self):
-                # graphs read the parameters where they were captured
-                where = tuple(p.data_ptr() for p in self.parameters())
-                if where != self._where:
-                    self._workspaces, self._where = {}, where
-                ws = self._workspaces.get((b, slots))
-                if ws is None:
-                    ws = self._workspaces[(b, slots)] = Workspace(
-                        lm, b, slots, x.device, x.dtype)
-                caches, angles = ws.caches, ws.angles
+            ws = self.decode_graphs.checkout(
+                self, x, (x.device, x.dtype, b, slots),
+                lambda: LatentWorkspace(lm, b, slots, x.device, x.dtype),
+                *reads(self))
+            if ws is None:
+                state = Prefilled(lm.latent_caches(b, slots, x.device,
+                                                   x.dtype),
+                                  lm.angles(slots, x.device), length)
             else:
-                caches = lm.latent_caches(b, slots, x.device, x.dtype)
-                angles = lm.angles(slots, x.device)
-            logits = lm.prefill(x, caches, angles)
+                state = Prefilled(ws.caches, ws.angles, length, ws)
+            try:
+                logits = lm.prefill(x, state.caches, state.angles)
+            except BaseException:
+                state.release()
+                raise
             self._routes = [m.last_route for m in self.moe_layers()]
-        return logits, Prefilled(caches, angles, length, ws)
+        return logits, state
 
     def decode_step(self, token: torch.Tensor, pos: int,
                     state: Prefilled) -> torch.Tensor:
@@ -150,13 +157,15 @@ class KimiVLCaptioner(nn.Module):
         lm = self.language_model
         pos_t = torch.full((1,), pos, dtype=torch.long, device=token.device)
         ws = state.workspace
-        if ws is not None and ws.graphs is None:
-            ws.graphs = DecodeGraphs(lm, ws.caches, ws.angles)
-        graphs = None if ws is None else ws.graphs
-        logits = lm.decode_step(token, pos_t, state.caches, state.angles,
-                                graphs)
-        self._routes = (graphs.routes if graphs is not None
-                        else [m.last_route for m in self.moe_layers()])
+        if ws is not None and not ws.graphs:
+            self.decode_graphs.captures += ws.capture(lm)
+        logits = lm.decode_step(token, pos_t, state.caches, state.angles, ws)
+        if ws is not None:
+            self.decode_graphs.replays += 1
+            self._routes = ws.routes
+        else:
+            self.decode_graphs.eager += 1
+            self._routes = [m.last_route for m in self.moe_layers()]
         return logits
 
     def last_routes(self) -> List[torch.Tensor]:

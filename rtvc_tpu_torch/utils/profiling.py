@@ -48,7 +48,7 @@ inside the one above it:
   either, ``rtvc.vlm.mla_decode`` (one layer's absorbed attention at one
   position) and ``rtvc.vlm.experts`` (one MoE layer's routed experts),
   in a graphed decode step both inside ``rtvc.decode.graph`` (the replay
-  of the step's per-layer graphs, ``models/kimi_lm.DecodeGraphs``);
+  of the step's per-layer graphs, ``models/kimi_lm.LatentWorkspace``);
 - ``real_time_inference.StreamingCaptioner.caption``:
   ``rtvc.stream.caption`` > ``rtvc.stream.h2d``, the step,
   ``rtvc.stream.readback``, ``rtvc.stream.detokenize``;

@@ -5,8 +5,8 @@ On the CPU, on a tiny student: every case where the graphs do not apply
 CUDA tensors) takes ``init_cache``'s caches and the eager body;
 ``student_greedy``'s rows and every step's logits equal a plain loop over
 ``decode_body``'s; ``student_beam`` runs the eager body; logits of one
-step are not overwritten by the next; a copy of the model starts with no
-workspace.
+step are not overwritten by the next. What it shares with the other
+graph users is tested in ``tests/test_torch_graphs.py``.
 
 On the card (marked ``cuda``; skips without one), on the full-width
 student in bfloat16: graphed greedy captions equal eager ones bit for bit,
@@ -27,7 +27,6 @@ import collections
 import copy
 import json
 import os
-import pickle
 import threading
 
 import pytest
@@ -35,7 +34,7 @@ import torch
 
 from rtvc_tpu_torch import decode, serving
 from rtvc_tpu_torch.config import TinyViTConfig
-from rtvc_tpu_torch.models import decode_graph
+from rtvc_tpu_torch.models import graphs
 from rtvc_tpu_torch.models.decode_graph import WorkspaceCaches
 from rtvc_tpu_torch.models.student import StudentCandidateV1, random_init_
 
@@ -180,7 +179,7 @@ def test_decode_caches_falls_back_to_init_cache(small, why):
     try:
         grad = torch.enable_grad() if why == "grad" else torch.no_grad()
         with grad:
-            assert not decode_graph.graphs_apply(small, memory)
+            assert not graphs.graphs_apply(small, memory)
             if why != "fake_cuda":
                 with small.decode_caches(1, 1 + MAX_LEN, memory) as caches:
                     assert type(caches) is list
@@ -189,19 +188,6 @@ def test_decode_caches_falls_back_to_init_cache(small, why):
                     assert caches[0]["k"].shape[2] == 1 + MAX_LEN
     finally:
         small.eval()
-
-
-def test_a_copy_of_the_model_starts_without_workspaces(small):
-    small.decode_graphs.replays += 1
-    twin = copy.deepcopy(small)
-    assert twin.decode_graphs is not small.decode_graphs
-    assert twin.decode_graphs.replays == 0
-    again = pickle.loads(pickle.dumps(small))
-    assert again.decode_graphs.replays == 0
-    small.decode_graphs.replays -= 1
-    frames = _frames(1)
-    assert torch.equal(decode.student_greedy(twin, frames, MAX_LEN),
-                       decode.student_greedy(small, frames, MAX_LEN))
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +225,7 @@ def _card_frames(b, seed=0, same=False):
 
 def _eager(model, monkeypatch):
     """Force the eager path for the block."""
-    monkeypatch.setattr(decode_graph, "graphs_apply", lambda *a: False)
+    monkeypatch.setattr(graphs, "graphs_apply", lambda *a: False)
 
 
 def _greedy_with_logits(model, frames, max_len, vocab_w8):
@@ -428,7 +414,7 @@ def test_the_gates_on_the_card(card, monkeypatch, why):
         _, memory = card.forward_image_enc(frames)
     memory = memory.clone()
     with torch.no_grad():
-        assert decode_graph.graphs_apply(card, memory)
+        assert graphs.graphs_apply(card, memory)
     if why == "compiling":
         monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
     if why == "train":
@@ -436,7 +422,7 @@ def test_the_gates_on_the_card(card, monkeypatch, why):
     try:
         grad = torch.enable_grad() if why == "grad" else torch.no_grad()
         with grad:
-            assert not decode_graph.graphs_apply(card, memory)
+            assert not graphs.graphs_apply(card, memory)
             with card.decode_caches(1, 1 + FULL_LEN, memory) as caches:
                 assert not isinstance(caches, WorkspaceCaches)
     finally:

@@ -2,12 +2,10 @@
 
 On the CPU, on a tiny student: every case where the graphs do not apply
 (CPU tensors, train mode, grad on, a compiler tracing) runs the eager body
-and makes no workspace; a copy of the model starts with no workspace; a
-workspace sees a moved or reassigned weight and a replaced submodule but
-not an in-place update, and pins the storage it captured; with the graph
-stood in, ``EncodeGraphs.run`` keeps one workspace a shape,
-captures again only after a weight moved, and sends a call to the eager
-body while another holds the workspace.
+and makes no workspace; with the graph stood in, ``EncodeGraphs.run``
+keeps one workspace a shape and captures again only after a weight moved.
+What it shares with the other graph users is tested in
+``tests/test_torch_graphs.py``.
 
 On the card (marked ``cuda``; skips without one), on the full-width
 student in bfloat16: graphed memory and stage maps equal eager ones bit
@@ -28,7 +26,6 @@ import collections
 import copy
 import json
 import os
-import pickle
 import threading
 import time
 
@@ -36,7 +33,7 @@ import pytest
 import torch
 
 from rtvc_tpu_torch.config import TinyViTConfig
-from rtvc_tpu_torch.models import encode_graph
+from rtvc_tpu_torch.models import graphs
 from rtvc_tpu_torch.models.encode_graph import EncodeWorkspace
 from rtvc_tpu_torch.models.student import StudentCandidateV1, random_init_
 
@@ -114,87 +111,6 @@ def test_channels_first_frames_take_the_same_body(small):
         assert torch.equal(a, b)
 
 
-def test_a_copy_of_the_model_starts_without_workspaces(small):
-    graphs = small.encode_graphs
-    graphs.replays, graphs.eager, graphs.captures = 3, 2, 1
-    graphs._workspaces["stand-in"] = object()
-    try:
-        twin = copy.deepcopy(small)
-        again = pickle.loads(pickle.dumps(small))
-        for other in (twin, again):
-            assert other.encode_graphs is not graphs
-            assert _counts(other) == (0, 0, 0)
-            assert len(other.encode_graphs._workspaces) == 0
-    finally:
-        graphs._workspaces.clear()
-    frames = _frames(1)
-    with torch.inference_mode():
-        _assert_same(twin.forward_image_enc(frames),
-                     small.forward_image_enc(frames))
-
-
-def test_a_workspace_sees_moved_and_reassigned_weights(small):
-    """In place: the same addresses. A reassigned parameter, a ``.to()``
-    (parameters and the float32 BatchNorm statistics it moves) and a
-    reassigned buffer: new ones."""
-    enc = small.image_encoder["model"]
-    with torch.inference_mode():
-        ws = EncodeWorkspace(_frames(1))
-    assert not ws.current()  # nothing captured
-    ws.graph = "stand-in"
-    ws.remember(enc)
-    n_tensors = len(list(enc.parameters())) + len(list(enc.buffers()))
-    assert len(ws.tensors) == len(ws.addresses) == n_tensors
-    assert ws.current()
-    sd = {k: v + 1 if v.is_floating_point() else v
-          for k, v in small.state_dict().items()}
-    small.load_state_dict(sd)
-    with torch.no_grad():
-        enc.patch_embed.conv1.bn.running_var.mul_(2)
-    assert ws.current()
-    stage = enc.stages[1]["blocks"][0]
-    stage.mlp.fc1.weight = torch.nn.Parameter(
-        stage.mlp.fc1.weight.detach().clone())
-    assert not ws.current()
-    ws.remember(enc)
-    captured = list(ws.addresses)
-    small.double()
-    assert not ws.current()
-    # the captured storage stays pinned: no new tensor can take its address
-    assert [t.data_ptr() for t in ws.pinned] == captured
-    ws.remember(enc)
-    bn = enc.patch_embed.conv2.bn
-    bn.running_mean = bn.running_mean.clone()
-    assert not ws.current()
-
-
-def test_a_workspace_sees_a_replaced_submodule(small):
-    """A submodule replaced in the tree, its weights shared or not, and a
-    parameter reassigned over the same storage."""
-    enc = small.image_encoder["model"]
-    with torch.inference_mode():
-        ws = EncodeWorkspace(_frames(1))
-    ws.graph = "stand-in"
-    ws.remember(enc)
-    block = enc.stages[2]["blocks"][0]
-    old = block.mlp
-    twin = copy.deepcopy(old)
-    twin.load_state_dict(old.state_dict())
-    block.mlp = twin  # new weights at new addresses
-    assert not ws.current()
-    ws.remember(enc)
-    shell = copy.copy(twin)  # a new module over the same tensors
-    shell._modules = dict(twin._modules)
-    block.mlp = shell
-    assert not ws.current()
-    ws.remember(enc)
-    fc2 = shell.fc2
-    fc2.weight = torch.nn.Parameter(fc2.weight.data)  # same storage
-    assert not ws.current()
-    ws.remember(enc)
-    assert ws.current()
-
-
 class _StandIn:
     """``EncodeWorkspace.capture`` / ``replay`` on the CPU: the body run
     eagerly on the static input instead of a graph, so that ``run``'s
@@ -202,8 +118,8 @@ class _StandIn:
 
     @staticmethod
     def capture(ws, model):
-        ws.graph, ws.model = "stand-in", model
-        ws.remember(model.image_encoder["model"])
+        ws.graphs, ws.model = ["stand-in"], model
+        return 1
 
     @staticmethod
     def replay(ws, x):
@@ -215,7 +131,7 @@ class _StandIn:
 
 @pytest.fixture
 def stood_in(monkeypatch):
-    monkeypatch.setattr(encode_graph, "graphs_apply", lambda *a: True)
+    monkeypatch.setattr(graphs, "graphs_apply", lambda *a: True)
     monkeypatch.setattr(EncodeWorkspace, "capture", _StandIn.capture)
     monkeypatch.setattr(EncodeWorkspace, "replay", _StandIn.replay)
 
@@ -238,35 +154,6 @@ def test_run_keeps_a_workspace_a_shape_and_captures_on_a_move(small,
         _assert_same(got, small.encode_body(one))
     assert got[1].dtype == torch.float64
     assert _counts(small) == (6, 0, 3)
-
-
-def test_a_held_workspace_sends_a_call_to_the_eager_body(small, stood_in):
-    frames = _frames(1, seed=4)
-    with torch.inference_mode():
-        want = small.forward_image_enc(frames)
-    (ws,) = small.encode_graphs._workspaces.values()
-    held, release = threading.Event(), threading.Event()
-
-    def hold():
-        with ws.lock:
-            held.set()
-            release.wait(60)
-
-    t = threading.Thread(target=hold)
-    t.start()
-    try:
-        assert held.wait(60)
-        replays, eager, captures = _counts(small)
-        with torch.inference_mode():
-            _assert_same(small.forward_image_enc(frames), want)
-        assert _counts(small) == (replays, eager + 1, captures)
-    finally:
-        release.set()
-        t.join(60)
-    assert not t.is_alive()
-    with torch.inference_mode():
-        _assert_same(small.forward_image_enc(frames), want)
-    assert _counts(small)[0] == replays + 1
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +181,7 @@ def _card_frames(b, seed=0):
 def _eager(model, frames, mode=torch.inference_mode):
     """The eager body's outputs, the graphs turned off."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(encode_graph, "graphs_apply", lambda *a: False)
+        mp.setattr(graphs, "graphs_apply", lambda *a: False)
         with mode():
             out = model.forward_image_enc(frames)
     torch.cuda.synchronize()
@@ -474,7 +361,7 @@ def test_caption_rows_equal_those_of_the_eager_encoder(card):
         for beam in (0, 2):
             step = make_caption_step(card, max_len=12, beam=beam)
             with pytest.MonkeyPatch.context() as mp:
-                mp.setattr(encode_graph, "graphs_apply", lambda *a: False)
+                mp.setattr(graphs, "graphs_apply", lambda *a: False)
                 want = step(frames)
             replays = card.encode_graphs.replays
             got = step(frames)

@@ -40,7 +40,7 @@ import torch
 
 from rtvc_tpu_torch import decode, serving
 from rtvc_tpu_torch.config import KimiVLConfig, MoonViTConfig
-from rtvc_tpu_torch.models import kimi_lm, kimi_vl, moonvit
+from rtvc_tpu_torch.models import graphs, kimi_lm, moonvit
 from rtvc_tpu_torch.models.kimi_vl import kimi_vl_from_config, random_init_
 from rtvc_tpu_torch.models.kimi_vl_reference import (KimiVLReference,
                                                      strict_float32,
@@ -390,20 +390,24 @@ def test_card_graphed_decode_equals_eager(full, batch, monkeypatch):
     logits bit for bit, the routed-token counts alike."""
     proc = normalised(full, frames_u8(batch, f=2, size=448, seed=3).cuda())
     out = {}
-    for graphs in (False, True):
+    for graphed in (False, True):
+        replays = full.decode_graphs.replays
         with monkeypatch.context() as m:
-            if not graphs:
-                m.setattr(kimi_vl, "graphs_apply", lambda *a: False)
+            if not graphed:
+                m.setattr(graphs, "graphs_apply", lambda *a: False)
             full.reset_expert_load()
             rows, logits = tapped_greedy(full, proc, new=5)
-        out[graphs] = (rows, logits, full.expert_load())
+        out[graphed] = (rows, logits, full.expert_load())
+        assert (full.decode_graphs.replays > replays) == graphed
     assert torch.equal(out[True][0], out[False][0])
     assert torch.equal(out[True][1], out[False][1])
     assert torch.equal(out[True][2], out[False][2])
     # a second call replays the graphs captured by the first
+    captures = full.decode_graphs.captures
     rows, logits = tapped_greedy(full, proc, new=5)
     assert torch.equal(rows, out[True][0]) and torch.equal(logits,
                                                            out[True][1])
+    assert full.decode_graphs.captures == captures
 
 
 @pytest.mark.cuda
@@ -412,10 +416,10 @@ def test_card_decode_token_synchronises_once(full):
     with torch.inference_mode():
         logits, state = full.prefill(full.encode(proc), 3)
         tok = torch.argmax(logits, -1)
-        full.decode_step(tok, state.length, state)  # warm: the capture
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
         try:
+            full.decode_step(tok, state.length, state)  # warm: the capture
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
             with warnings.catch_warnings(record=True) as seen:
                 warnings.simplefilter("always")
                 out = full.decode_step(tok, state.length + 1, state)
@@ -423,6 +427,7 @@ def test_card_decode_token_synchronises_once(full):
                 stop = bool((nxt == full.eos_token_id).all())
         finally:
             torch.cuda.set_sync_debug_mode(0)
+            state.release()
     syncs = [w for w in seen if "synchroniz" in str(w.message)]
     assert len(syncs) == 1, [str(w.message) for w in syncs]
     assert stop in (True, False)
