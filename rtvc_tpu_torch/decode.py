@@ -9,10 +9,14 @@ back from the device per token.
 
 ``student_greedy`` (reference model.py:156-187) runs the student with
 caches of ``1 + max_len`` slots from ``model.decode_caches``, held for the
-whole caption: on the card in eval mode each ``decode_step`` then replays
-one CUDA graph of the step's body (``models/decode_graph.py``), and the
-argmax, the token write and the stop's read-back stay eager. The
-semantics are the reference's:
+whole caption. One greedy position is :class:`GreedyStep` (the key mask,
+the body, the argmax, the token write, the stop). Eagerly the loop runs it
+and reads the stop back every token. On the card in eval mode the caches
+are a decode workspace's (``models/decode_graph.py``), which captures the
+step as one CUDA graph a position: each ``decode_step`` replays it, and
+the host reads the stop one position late, after it has issued the next
+position, so the card never waits on the read. The semantics are the
+reference's:
 
 - the self-attention key mask is ``(pos <= i) & (tokens != 0)``: a
   generated pad id 0 drops out of later steps, as the reference's
@@ -44,14 +48,65 @@ latent caches, with :func:`student_greedy`'s spans and all-rows stop.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .models.decode_graph import DecodeWorkspace
 from .models.git_teacher import Cache, GITTeacher
 from .models.kimi_vl import KimiVLCaptioner
 from .models.student import StudentCandidateV1
 from .utils.profiling import span
+
+
+class GreedyStep:
+    """A greedy caption's state on its device, and one position of it run
+    in place, as JAX's ``lax.while_loop`` body keeps it on the device
+    (``rtvc_tpu/decode.py``):
+
+    - ``rows`` ``[B, slots]``: CLS, the generated ids, 0 after an all-rows
+      stop; int64, argmax's own type, so that the token write is one
+      kernel;
+    - ``mask`` ``[B, slots]``: the key mask ``(pos <= i) & (rows != 0)``,
+      its column ``i`` set at position ``i`` (the rows never change behind
+      the position);
+    - ``done``: every row has emitted SEP at one step;
+    - ``sep``, ``zero``: the int64 scalars the step compares and writes.
+
+    :func:`student_greedy` runs it eagerly; a decode workspace captures it
+    as each position's CUDA graph (``models/decode_graph.py``) and hands
+    ``done`` to the host as the position's flag."""
+
+    def __init__(self, batch: int, slots: int, device: torch.device):
+        self.rows = torch.zeros((batch, slots), dtype=torch.int64,
+                                device=device)
+        self.mask = torch.zeros((batch, slots), dtype=torch.bool,
+                                device=device)
+        self.done = torch.zeros((), dtype=torch.bool, device=device)
+        self.sep = torch.zeros((), dtype=torch.int64, device=device)
+        self.zero = torch.zeros((), dtype=torch.int64, device=device)
+
+    def start(self, model: StudentCandidateV1) -> None:
+        """A new caption: the rows CLS then 0, no key, not done, the
+        model's SEP."""
+        self.rows.zero_()
+        self.rows[:, 0] = model.cls_token_id
+        self.mask.zero_()
+        self.done.zero_()
+        self.sep.fill_(model.sep_token_id)
+
+    def __call__(self, body: Callable[..., torch.Tensor], index: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Position ``index``: ``body(token, index, mask)``'s logits, whose
+        argmax is written to ``rows[:, index + 1]`` (0 once ``done``), and
+        ``done`` set where every row emitted SEP. Returns the logits and
+        ``done``."""
+        torch.ne(self.rows[:, index], 0, out=self.mask[:, index])
+        logits = body(self.rows[:, index], index, self.mask)
+        nxt = torch.argmax(logits, dim=-1)
+        torch.where(self.done, self.zero, nxt, out=self.rows[:, index + 1])
+        self.done |= (nxt == self.sep).all()
+        return logits, self.done
 
 
 @torch.inference_mode()
@@ -62,38 +117,69 @@ def student_greedy(model: StudentCandidateV1, frames: torch.Tensor,
     """Frames ``[B, F, H, W, 3]`` → int32 ``[B, 1 + max_len]``: CLS, the
     generated ids, 0 after an early stop.
 
-    ``host_stop`` reads the all-rows-SEP test back every token and breaks
-    the loop. ``host_stop=False`` reads nothing back, as an exported
-    program must: it runs all ``max_len`` steps, writes 0 once every row
-    has emitted SEP at one step and keeps the rows of the early stop, as
-    JAX's while-loop leaves them."""
+    ``host_stop`` reads the all-rows-SEP test back and breaks the loop.
+    ``host_stop=False`` reads nothing back, as an exported program must:
+    it runs all ``max_len`` steps, writes 0 once every row has emitted SEP
+    at one step and keeps the rows of the early stop, as JAX's while-loop
+    leaves them. Either way ``model.decode_step`` is called once a decoded
+    position and returns logits the caller owns."""
     with span("rtvc.decode.encode"):
         _, memory = model.forward_image_enc(frames)
     b = frames.shape[0]
     total = 1 + max_len
-    tokens = torch.zeros((b, total), dtype=torch.int32, device=memory.device)
-    tokens[:, 0] = model.cls_token_id
-    pos = torch.arange(total, device=memory.device)[None, :]
-    done = None if host_stop else torch.zeros((), dtype=torch.bool,
-                                              device=memory.device)
-    with model.decode_caches(b, total, memory, vocab_w8) as caches:
+    with model.decode_caches(b, total, memory, vocab_w8,
+                             step=GreedyStep) as caches:
+        ws = getattr(caches, "workspace", None)
+        if ws is not None and ws.armed:
+            return _greedy_on_workspace(model, ws, max_len, vocab_w8,
+                                        host_stop)
+        greedy = GreedyStep(b, total, memory.device)
+        greedy.start(model)
+
+        def body(token, index, mask):
+            return model.decode_step(token, index, caches, mask,
+                                     vocab_w8=vocab_w8)[0]
+
         for i in range(max_len):
             with span("rtvc.decode.token"):
-                kv_mask = (pos <= i) & (tokens != 0)
-                logits, caches = model.decode_step(tokens[:, i], i, caches,
-                                                   kv_mask, vocab_w8=vocab_w8)
-                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-                stop = (nxt == model.sep_token_id).all()
+                greedy(body, i)
                 if host_stop:
-                    tokens[:, i + 1] = nxt
                     with span("rtvc.decode.stop_wait"):
-                        stopped = bool(stop)
+                        stopped = bool(greedy.done)
                     if stopped:
                         break
-                else:
-                    tokens[:, i + 1] = torch.where(done, 0, nxt)
-                    done = done | stop
-    return tokens
+    return greedy.rows.to(torch.int32)
+
+
+def _greedy_on_workspace(model: StudentCandidateV1, ws: DecodeWorkspace,
+                         max_len: int,
+                         vocab_w8: Optional[Dict[str, torch.Tensor]],
+                         host_stop: bool) -> torch.Tensor:
+    """:func:`student_greedy` on a decode workspace armed with
+    :class:`GreedyStep` (``ws.step``), whose position graphs write the rows
+    and the flag themselves. After issuing position ``i`` the host waits
+    for position ``i - 1``'s flag, so the card holds position ``i`` while
+    the host reads; on a stop that position was decoded past it (its token
+    write is 0, the rows are the eager loop's), counted in
+    ``model.decode_graphs.past_stop``. A ``decode_step`` call that did not
+    replay its position raises. Returns an int32 copy of the rows."""
+    greedy = ws.step
+    greedy.start(model)
+    for i in range(max_len):
+        with span("rtvc.decode.token"):
+            model.decode_step(greedy.rows[:, i], i, ws.caches, greedy.mask,
+                              vocab_w8=vocab_w8)
+            if ws.issued != i + 1:
+                raise RuntimeError(
+                    f"decode position {i} did not replay its graph: "
+                    "model.decode_step must reach the workspace's replay")
+            if host_stop and i > 0:
+                with span("rtvc.decode.stop_wait"):
+                    stopped = ws.flag(i - 1)
+                if stopped:
+                    model.decode_graphs.past_stop += 1
+                    break
+    return greedy.rows.to(torch.int32)
 
 
 @torch.inference_mode()

@@ -1,17 +1,32 @@
-"""One CUDA graph per decode position for the student's one-token decode.
+"""One CUDA graph per decode position for the student's greedy token.
 
 A greedy token of the student issues about 85 launches from Python in
 :meth:`StudentCandidateV1.decode_step`'s body (embedding, positional
 encoding, two post-norm decoder layers with K2, the vocab projection or
-K3). On the card each costs more host time than device time, so a caption
-waits on the host. A :class:`DecodeWorkspace` holds static buffers (each
-layer's ``k``/``v``/``mem_k``/``mem_v`` cache, the token ``[B]``, the key
-mask ``[B, slots]``) and one ``torch.cuda.CUDAGraph`` of that body for
-each position ``0 … slots - 2`` (the positions ``decode.student_greedy``
-decodes at), all in one private memory pool. ``decode_step`` on the
-workspace's caches copies the token and the mask in, replays the
-position's graph (the span ``rtvc.decode.graph``) and returns a clone of
-its logits, which the caller owns: a later step never overwrites them.
+K3), and about a dozen more around it (the key mask, the argmax, the stop
+test, the token write). On the card each costs more host time than device
+time, so a caption waits on the host. A :class:`DecodeWorkspace` holds
+static buffers (each layer's ``k``/``v``/``mem_k``/``mem_v`` cache, the
+caller's step with its own buffers, a pinned host flag a position) and one
+``torch.cuda.CUDAGraph`` for each position ``0 … slots - 2`` (the
+positions ``decode.student_greedy`` decodes at), all in one private memory
+pool.
+
+The caller hands the step in: ``decode_caches(..., step=make)`` gives the
+workspace ``make(batch, slots, device)`` (once), a callable ``step(body, index)
+-> (logits, flag)`` that reads and writes its own buffers
+(``decode.GreedyStep``: the key mask, the argmax, the token write, the
+stop). Position ``i``'s graph is ``step(body, i)`` over the class's decode
+body on the workspace's caches, then a copy of the flag into slot ``i`` of
+the pinned host array. For the block the workspace is ``armed``: each
+``decode_step`` on its caches replays its position's graph, in turn, and
+returns a clone of the logits, which the caller owns: a later step never
+overwrites them. The graph reads the step's buffers, which the caller
+passes as the token and the mask; a call out of turn raises.
+:meth:`DecodeWorkspace.flag` waits for a position's flag (an event
+recorded on the workspace's card after the replay) and reads it. A block
+opened without a step holds the caches alone, and ``decode_step`` on them
+runs the eager body.
 
 The graphs hold the eager body itself: the same kernels, K2 and K3
 included, on the same shapes in the same order, so replayed logits equal
@@ -32,7 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,6 +56,9 @@ from ..utils.profiling import span
 from .graphs import GraphRegistry, Workspace
 
 Cache = Dict[str, torch.Tensor]
+# ``step(body, index) -> (logits, flag)``, ``body(token, index, mask)``
+Step = Callable[[Callable[..., torch.Tensor], int],
+                Tuple[torch.Tensor, torch.Tensor]]
 
 
 def reads(model: nn.Module, vocab_w8: Optional[Dict[str, torch.Tensor]]
@@ -72,25 +90,39 @@ class DecodeWorkspace(Workspace):
         self.vocab_w8: Optional[Dict[str, torch.Tensor]] = None
         self.caches = WorkspaceCaches(
             model.init_cache(batch, slots, memory), self)
-        self.token = torch.zeros((batch,), dtype=torch.int32,
-                                 device=memory.device)
-        self.mask = torch.ones((batch, slots), dtype=torch.bool,
-                               device=memory.device)
+        self.step: Optional[Step] = None  # its buffers outlive a block
+        self.armed = False  # the block's decode_step calls replay the step
+        self.issued = 0     # positions replayed in the block
+        # slot i: position i's flag, copied by its graph
+        self.flags = torch.zeros((slots,), dtype=torch.bool,
+                                 pin_memory=memory.is_cuda)
+        self.landed: List[torch.cuda.Event] = []  # one a replay, after it
         self.logits: List[torch.Tensor] = []
 
-    def capture(self, model: nn.Module) -> int:
-        """Capture a graph of the decode body for every position but the
-        last, after one eager warm-up. Returns the graphs captured."""
-        bodies = [functools.partial(self._body, model, i)
-                  for i in range(self.mask.shape[1] - 1)]
-        self.logits = self.capture_graphs(bodies[0], bodies)
-        return len(self.graphs)
+    def positions(self, model: nn.Module) -> List[Callable[[], torch.Tensor]]:
+        """Each position's work, as its graph holds it: the step over the
+        class's body on the workspace's caches (not ``model.decode_step``:
+        whatever wraps that on the instance sees the per-token calls only),
+        then the flag's copy to the host."""
+        def body(token, index, mask):
+            return type(model).decode_body(model, token, index, self.caches,
+                                           mask, self.vocab_w8)
 
-    def _body(self, model: nn.Module, index: int) -> torch.Tensor:
-        # the class's body, not ``model.decode_step``: whatever wraps that
-        # on the instance sees the per-token calls only
-        return type(model).decode_body(model, self.token, index, self.caches,
-                                       self.mask, self.vocab_w8)
+        def position(index):
+            logits, flag = self.step(body, index)
+            self.flags[index].copy_(flag, non_blocking=True)
+            return logits
+
+        return [functools.partial(position, i)
+                for i in range(len(self.flags) - 1)]
+
+    def capture(self, model: nn.Module) -> int:
+        """Capture every position's graph after one eager warm-up. Returns
+        the graphs captured."""
+        positions = self.positions(model)
+        self.logits = self.capture_graphs(positions[0], positions)
+        self.landed = [torch.cuda.Event() for _ in self.graphs]
+        return len(self.graphs)
 
     def load(self, model: nn.Module, memory: torch.Tensor) -> WorkspaceCaches:
         """``init_cache`` into the static caches: self-attention keys and
@@ -103,38 +135,49 @@ class DecodeWorkspace(Workspace):
             cache["mem_v"].copy_(mem_v)
         return self.caches
 
-    def replay(self, token: torch.Tensor, index: int,
-               kv_mask: Optional[torch.Tensor],
-               vocab_w8: Optional[Dict[str, torch.Tensor]]
-               ) -> Optional[torch.Tensor]:
-        """The logits of position ``index`` from its graph, or None where
-        the call is not the one captured (no mask, another head, another
-        shape, a position without a graph)."""
-        if (vocab_w8 is not self.vocab_w8 or kv_mask is None
-                or not 0 <= index < len(self.graphs)
-                or token.shape != self.token.shape
-                or kv_mask.shape != self.mask.shape):
-            return None
-        self.token.copy_(token)
-        self.mask.copy_(kv_mask)
+    def replay(self, index: int) -> torch.Tensor:
+        """Position ``index``'s graph, the block's next: a clone of its
+        logits. The event after it is recorded on the workspace's card,
+        whichever card is current."""
+        if index != self.issued or index >= len(self.graphs):
+            raise RuntimeError(
+                f"decode position {index} out of turn: the workspace "
+                f"replays positions 0 … {len(self.graphs) - 1} in order, "
+                f"and is at {self.issued}")
         with span("rtvc.decode.graph"):
             self.replay_graph(index)
+        self.landed[index].record(torch.cuda.current_stream(self.device))
+        self.issued += 1
         return self.logits[index].clone()
+
+    def flag(self, index: int) -> bool:
+        """Position ``index``'s flag, once it has reached the host."""
+        self.landed[index].synchronize()
+        return bool(self.flags[index])
 
 
 class DecodeGraphs(GraphRegistry):
     """A model's decode workspaces and counts (:class:`.graphs.
-    GraphRegistry`): ``replays`` and ``eager`` count decode steps."""
+    GraphRegistry`): ``replays`` and ``eager`` count decode steps,
+    ``past_stop`` the positions greedy captions decoded past their stop
+    (at most one a caption)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.past_stop = 0
 
     @contextlib.contextmanager
     def caches(self, model: nn.Module, batch: int, slots: int,
                memory: torch.Tensor,
-               vocab_w8: Optional[Dict[str, torch.Tensor]] = None
+               vocab_w8: Optional[Dict[str, torch.Tensor]] = None,
+               step: Optional[Callable[..., Step]] = None
                ) -> Iterator[List[Cache]]:
         """Caches for one caption of ``batch`` rows and ``slots`` cache
-        slots: a workspace's, captured for the model's present weights and
-        held until the block ends, where the graphs apply and it is free,
-        else ``model.init_cache``'s."""
+        slots: a workspace's, held until the block ends, where the graphs
+        apply and it is free, else ``model.init_cache``'s. Given ``step``,
+        the workspace is armed with ``step(batch, slots, device)``, made at
+        its first such block, its graphs captured for the model's present
+        weights."""
         key = (memory.device, memory.dtype, batch, slots, memory.shape[1],
                vocab_w8 is not None)
         ws = self.checkout(model, memory, key, lambda: DecodeWorkspace(
@@ -144,8 +187,13 @@ class DecodeGraphs(GraphRegistry):
             return
         try:
             ws.vocab_w8 = vocab_w8
-            if not ws.graphs:
-                self.captures += ws.capture(model)
+            if step is not None:
+                if ws.step is None:
+                    ws.step = step(batch, slots, memory.device)
+                if not ws.graphs:
+                    self.captures += ws.capture(model)
+                ws.armed, ws.issued = True, 0
             yield ws.load(model, memory)
         finally:
+            ws.armed = False
             ws.lock.release()

@@ -23,7 +23,7 @@ Kept from the reference and the JAX model:
   writes the new key and value into the cache in place. With ``vocab_w8``
   the vocab projection runs on kernel K3. :meth:`~StudentCandidateV1.
   decode_caches` gives a caption its caches; on the card in eval mode
-  they belong to a workspace whose steps replay one CUDA graph a
+  they belong to a workspace whose greedy steps replay one CUDA graph a
   position (:mod:`.decode_graph`).
 
 The distillation heads are built (their weights travel with a checkpoint)
@@ -360,13 +360,15 @@ class StudentCandidateV1(nn.Module):
                 for layer in self.decoder["layers"]]
 
     def decode_caches(self, batch: int, max_len: int, memory: torch.Tensor,
-                      vocab_w8: Optional[Dict[str, torch.Tensor]] = None):
+                      vocab_w8: Optional[Dict[str, torch.Tensor]] = None,
+                      step=None):
         """Context manager: the caches of one caption, held until the block
-        ends. On the card in eval mode they are a decode workspace's, whose
-        positions :meth:`decode_step` replays as CUDA graphs; elsewhere
-        ``init_cache``'s (:mod:`.decode_graph`)."""
+        ends. On the card in eval mode they are a decode workspace's; given
+        a ``step`` (``decode.GreedyStep``), each position's
+        :meth:`decode_step` replays that step as a CUDA graph. Elsewhere
+        they are ``init_cache``'s (:mod:`.decode_graph`)."""
         return self.decode_graphs.caches(self, batch, max_len, memory,
-                                         vocab_w8)
+                                         vocab_w8, step)
 
     def decode_step(self, token: torch.Tensor, index: int,
                     caches: List[Cache],
@@ -376,15 +378,17 @@ class StudentCandidateV1(nn.Module):
         """``token [B]`` at position ``index`` → (logits ``[B, V]``, the
         caches, updated in place). ``vocab_w8`` (from
         :func:`ops.quantization.quantize_vocab_head`) sends the vocab
-        projection through K3. On a decode workspace's caches the step
-        replays the position's CUDA graph; the logits are the caller's
-        either way, never overwritten by a later step."""
+        projection through K3. On the caches of a workspace armed with a
+        step (``decode.student_greedy``'s), the call replays the
+        position's CUDA graph of the whole step, which reads the step's
+        own token and mask (the ones passed) and writes the next token and
+        its flag; any other call runs the eager body. The logits are the
+        caller's either way, never overwritten by a later step."""
         ws = getattr(caches, "workspace", None)
-        if ws is not None:
-            logits = ws.replay(token, index, kv_mask, vocab_w8)
-            if logits is not None:
-                self.decode_graphs.replays += 1
-                return logits, caches
+        if ws is not None and ws.armed:
+            logits = ws.replay(index)
+            self.decode_graphs.replays += 1
+            return logits, caches
         self.decode_graphs.eager += 1
         return self.decode_body(token, index, caches, kv_mask,
                                 vocab_w8), caches

@@ -37,8 +37,9 @@ inside the one above it:
   ``models/encode_graph.py``), one ``rtvc.decode.token`` a
   decoded token > ``rtvc.decode.graph`` (the replay of the position's
   CUDA graph, where the step takes one: ``models/decode_graph.py``) and
-  ``rtvc.decode.stop_wait`` (the read-back of the all-rows-SEP test;
-  greedy with ``host_stop`` only);
+  ``rtvc.decode.stop_wait`` (the read-back of the all-rows-SEP test,
+  greedy with ``host_stop`` only: eager, the token's own; on a decode
+  workspace, the previous position's, after this one is issued);
 - the vision-language captioner (``models/kimi_vl.py``, driven by
   ``decode.vlm_greedy`` under the same caption step): ``rtvc.vlm.vision``
   (MoonViT and the projector) inside ``rtvc.decode.encode``;

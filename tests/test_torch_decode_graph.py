@@ -5,18 +5,35 @@ On the CPU, on a tiny student: every case where the graphs do not apply
 CUDA tensors) takes ``init_cache``'s caches and the eager body;
 ``student_greedy``'s rows and every step's logits equal a plain loop over
 ``decode_body``'s; ``student_beam`` runs the eager body; logits of one
-step are not overwritten by the next. What it shares with the other
-graph users is tested in ``tests/test_torch_graphs.py``.
+step are not overwritten by the next. With each position's graph stood in
+by its greedy step run eagerly on the CPU, on scripted decodes (every row
+stops at step 0, at step 2 with the rows emitting SEP at different steps,
+at the last step, never; pad ids emitted): the positions issued, the stops
+read one position late, where the loop ends, ``past_stop``, the rows (0
+after the stop) and the first calls' logits against the eager path's,
+whose own rows and calls are pinned too; ``host_stop=False`` runs every
+position; a call with its own token and mask on a workspace's caches held
+without a step runs the eager body; each replay's event is recorded on the
+workspace's own card; a wrapper on ``decode_step`` that copies the token
+and the mask still replays, one that never reaches the replay raises, as
+does a position out of turn. What it shares with the other graph users is
+tested in ``tests/test_torch_graphs.py``.
 
 On the card (marked ``cuda``; skips without one), on the full-width
 student in bfloat16: graphed greedy captions equal eager ones bit for bit,
-rows and every step's logits, at batch 1, 2, 4 and 8, with the bf16 head
-and ``vocab_int8``, over 25 tokens and with an early SEP stop; a step's
-logits survive later steps; in-place ``load_state_dict`` and a reassigned
-parameter both give the eager result; a second thread holding the
-workspace falls back to eager; ``replays`` counts the tokens decoded and
-no capture follows the warm-up; the kernels' launch counts read as the
-eager path's; fewer than 20 host launches a token lie outside the graph.
+rows and the logits of every step the eager loop ran, at batch 1, 2, 4
+and 8, with the bf16 head and ``vocab_int8``, over 25 tokens, with an
+all-rows early SEP stop and with rows that emit SEP at different steps;
+the graphed loop makes the eager loop's calls or one more past the stop
+(``past_stop``), no two aliased; ``host_stop=False`` gives the same rows;
+with two cards, a replica on card 1 driven from a thread with card 0
+current equals the eager captions, early stops and full ones in turn;
+in-place ``load_state_dict`` and a reassigned parameter both give the
+eager result; a second thread holding the workspace falls back to eager;
+``replays`` counts the positions decoded and no capture follows the
+warm-up; the kernels' launch counts read as the eager path's; outside
+the graph a token issues its graph's launch and the logits' clone, at
+most one more host launch.
 The file imports no JAX, so that it runs on the card's machine:
 
     python -m pytest --noconftest -p no:cacheprovider \\
@@ -34,8 +51,9 @@ import torch
 
 from rtvc_tpu_torch import decode, serving
 from rtvc_tpu_torch.config import TinyViTConfig
-from rtvc_tpu_torch.models import graphs
-from rtvc_tpu_torch.models.decode_graph import WorkspaceCaches
+from rtvc_tpu_torch.models import encode_graph, graphs
+from rtvc_tpu_torch.models.decode_graph import (DecodeWorkspace,
+                                                WorkspaceCaches)
 from rtvc_tpu_torch.models.student import StudentCandidateV1, random_init_
 
 TINY_ENC = TinyViTConfig(embed_dims=(8, 16, 24, 32), depths=(1, 1, 1, 1),
@@ -190,6 +208,255 @@ def test_decode_caches_falls_back_to_init_cache(small, why):
         small.eval()
 
 
+class _Landed:
+    """A position's event on the CPU, where the work is done once issued:
+    the streams it was recorded on."""
+
+    def __init__(self):
+        self.streams = []
+
+    def record(self, stream=None):
+        self.streams.append(stream)
+
+    def synchronize(self):
+        pass
+
+
+class _Position:
+    """A position's graph on the CPU: its work, run at each replay."""
+
+    def __init__(self, ws, work, index):
+        self.ws, self.work, self.index = ws, work, index
+
+    def replay(self):
+        self.ws.logits[self.index] = self.work()
+
+
+def _capture_on_cpu(ws, model):
+    positions = ws.positions(model)
+    ws.graphs = [_Position(ws, p, i) for i, p in enumerate(positions)]
+    ws.deltas = [[] for _ in positions]
+    ws.logits = [None] * len(positions)
+    ws.landed = [_Landed() for _ in positions]
+    return len(positions)
+
+
+def _stand_in(monkeypatch):
+    """Decode workspaces on the CPU, each position's graph stood in by its
+    work; the encoder eager; a device's current stream named by it."""
+    monkeypatch.setattr(graphs, "graphs_apply", lambda *a: True)
+    monkeypatch.setattr(DecodeWorkspace, "capture", _capture_on_cpu)
+    monkeypatch.setattr(encode_graph.EncodeGraphs, "run", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: ("stream of", device))
+
+
+@pytest.fixture
+def stood_in(monkeypatch):
+    _stand_in(monkeypatch)
+
+
+SEP = 102
+# the first-argmax ids each row emits at each step, and the step at which
+# every row has emitted SEP at once (None: never)
+_SCRIPTS = {
+    "stop_at_0": ([[SEP, 5, 7, 11, 13, 17], [SEP, 9, 19, 23, 29, 31]], 0),
+    "stop_at_2": ([[5, 7, SEP, 11, 13, 17], [9, SEP, SEP, 19, 23, 29]], 2),
+    "stop_at_last": ([[5, 7, 11, 13, 17, SEP], [9, 19, SEP, 23, 29, SEP]],
+                     MAX_LEN - 1),
+    "no_stop": ([[5, 7, 11, 13, 17, 19], [9, 19, SEP, 23, 29, 31]], None),
+    # generated pad ids leave the key mask of later positions
+    "pad_ids": ([[5, 0, 7, 11, 13, 17], [9, 19, 0, 0, 29, 31]], None),
+}
+
+
+def _scripted(monkeypatch, script, device="cpu"):
+    """Every decode body (eager, a graph's or a stood-in graph's) emits
+    the script's ids: the real logits less 1e4 everywhere else."""
+    real = StudentCandidateV1.decode_body
+    ids = torch.tensor(script, device=device)
+    rows = torch.arange(ids.shape[0], device=device)
+
+    def decode_body(self, token, index, caches, kv_mask, vocab_w8):
+        logits = real(self, token, index, caches, kv_mask, vocab_w8)
+        forced = logits - 1e4
+        forced[rows, ids[:, index]] = logits[rows, ids[:, index]]
+        return forced
+
+    monkeypatch.setattr(StudentCandidateV1, "decode_body", decode_body)
+
+
+def _expected_rows(model, script, stop):
+    rows = torch.zeros((2, 1 + MAX_LEN), dtype=torch.int32)
+    rows[:, 0] = model.cls_token_id
+    end = MAX_LEN if stop is None else stop + 1
+    rows[:, 1:end + 1] = torch.tensor(script, dtype=torch.int32)[:, :end]
+    return rows
+
+
+class _Reads:
+    """The positions whose stops the host read."""
+
+    def __init__(self, monkeypatch):
+        self.read = []
+        real = DecodeWorkspace.flag
+
+        def flag(ws, index):
+            self.read.append(index)
+            return real(ws, index)
+
+        monkeypatch.setattr(DecodeWorkspace, "flag", flag)
+
+
+@pytest.mark.parametrize("script", list(_SCRIPTS))
+def test_the_stop_is_read_one_position_late(small, monkeypatch, script):
+    """Eager, the loop reads each position's stop before the next and ends
+    at the stop; on a workspace it reads position ``i - 1``'s after issuing
+    position ``i``, so an early stop decodes one position more, whose token
+    write is 0: the same rows, the eager calls' logits first."""
+    ids, stop = _SCRIPTS[script]
+    _scripted(monkeypatch, ids)
+    frames = _frames(2, seed=3)
+    want = _expected_rows(small, ids, stop)
+    eager_calls = MAX_LEN if stop is None else stop + 1
+    eager = Tap(small)
+    try:
+        rows = decode.student_greedy(small, frames, max_len=MAX_LEN)
+    finally:
+        eager.close()
+    assert torch.equal(rows, want)
+    assert len(eager.held) == eager_calls
+
+    _stand_in(monkeypatch)
+    reads = _Reads(monkeypatch)
+    past = small.decode_graphs.past_stop
+    replays, eager_n, _ = _counts(small)
+    graphed = Tap(small)
+    issued = []
+    inner = small.decode_step
+
+    def decode_step(token, index, *args, **kwargs):
+        issued.append(index)
+        return inner(token, index, *args, **kwargs)
+
+    small.decode_step = decode_step
+    try:
+        got = decode.student_greedy(small, frames, max_len=MAX_LEN)
+    finally:
+        graphed.close()
+    beyond = int(stop is not None and stop < MAX_LEN - 1)
+    assert torch.equal(got, want)
+    assert issued == list(range(eager_calls + beyond))
+    assert reads.read == issued[:-1]
+    assert small.decode_graphs.past_stop - past == beyond
+    assert _counts(small)[:2] == (replays + len(issued), eager_n)
+    for a, b in zip(graphed.held, eager.held):
+        assert torch.equal(a, b)
+    graphed.assert_unaliased()
+
+
+def test_host_stop_false_runs_every_position(small, monkeypatch, stood_in):
+    ids, stop = _SCRIPTS["stop_at_2"]
+    _scripted(monkeypatch, ids)
+    reads = _Reads(monkeypatch)
+    past = small.decode_graphs.past_stop
+    replays = small.decode_graphs.replays
+    got = decode.student_greedy(small, _frames(2, seed=3), max_len=MAX_LEN,
+                                host_stop=False)
+    assert torch.equal(got, _expected_rows(small, ids, stop))
+    assert small.decode_graphs.replays - replays == MAX_LEN
+    assert reads.read == [] and small.decode_graphs.past_stop == past
+
+
+def test_the_workspace_loop_is_the_reference_loop(small, stood_in):
+    """Real logits: rows and each step's logits equal the plain loop's."""
+    frames = _frames(3, seed=1)
+    want, steps = reference_greedy(small, frames, MAX_LEN)
+    tap = Tap(small)
+    try:
+        got = decode.student_greedy(small, frames, max_len=MAX_LEN)
+    finally:
+        tap.close()
+    assert torch.equal(got, want)
+    assert len(tap.held) in (len(steps), len(steps) + 1)
+    for a, b in zip(tap.held, steps):
+        assert torch.equal(a, b)
+    tap.assert_unaliased()
+
+
+def test_an_own_token_and_mask_run_the_eager_body(small, stood_in):
+    """On a workspace's caches held without a step, a call with its own
+    token and mask runs the eager body: the logits of ``init_cache``'s."""
+    frames = _frames(2, seed=5)
+    with torch.inference_mode():
+        _, memory = small.forward_image_enc(frames)
+        token = torch.full((2,), small.cls_token_id, dtype=torch.int32)
+        mask = torch.zeros((2, 1 + MAX_LEN), dtype=torch.bool)
+        mask[:, 0] = True
+        want = small.decode_body(token, 0, small.init_cache(
+            2, 1 + MAX_LEN, memory), mask, None)
+        replays, eager, _ = _counts(small)
+        with small.decode_caches(2, 1 + MAX_LEN, memory) as caches:
+            assert isinstance(caches, WorkspaceCaches)
+            got, _ = small.decode_step(token, 0, caches, mask)
+    assert torch.equal(got, want)
+    assert _counts(small)[:2] == (replays, eager + 1)
+
+
+def test_the_flag_events_are_recorded_on_the_workspaces_card(small,
+                                                             stood_in):
+    """Each replay's event is recorded on the current stream of the
+    workspace's own device, not of whichever device the calling thread has
+    current (a replica's thread under ``BatchCaptionServer(mesh=)``)."""
+    decode.student_greedy(small, _frames(2, seed=7), max_len=MAX_LEN)
+    seen = 0
+    for ws in small.decode_graphs._workspaces.values():
+        recorded = [s for landed in ws.landed for s in landed.streams]
+        assert recorded == [("stream of", ws.device)] * len(recorded)
+        seen += len(recorded)
+    assert seen >= MAX_LEN
+
+
+@pytest.mark.parametrize("wrapper", ["copies", "skips"])
+def test_a_position_that_does_not_replay_fails_loudly(small, stood_in,
+                                                      wrapper):
+    """The graph reads the step's own buffers, so a wrapper on the
+    instance's ``decode_step`` that copies the token and the mask still
+    gets the eager rows; one that never reaches the replay raises instead
+    of returning the rows of a caption nobody decoded."""
+    frames = _frames(2, seed=9)
+    want, _ = reference_greedy(small, frames, MAX_LEN)
+    inner = small.decode_step
+
+    def decode_step(token, index, caches, kv_mask=None, **kw):
+        if wrapper == "copies":
+            return inner(token.clone(), index, caches, kv_mask.clone(), **kw)
+        return torch.zeros((2, small.vocab_size)), caches
+
+    small.decode_step = decode_step
+    try:
+        if wrapper == "copies":
+            got = decode.student_greedy(small, frames, max_len=MAX_LEN)
+            assert torch.equal(got, want)
+        else:
+            with pytest.raises(RuntimeError, match="did not replay"):
+                decode.student_greedy(small, frames, max_len=MAX_LEN)
+    finally:
+        del small.decode_step
+
+
+def test_an_armed_position_out_of_turn_raises(small, stood_in):
+    frames = _frames(2, seed=11)
+    with torch.inference_mode():
+        _, memory = small.forward_image_enc(frames)
+        with small.decode_caches(2, 1 + MAX_LEN, memory,
+                                 step=decode.GreedyStep) as caches:
+            greedy = caches.workspace.step
+            greedy.start(small)
+            with pytest.raises(RuntimeError, match="out of turn"):
+                small.decode_step(greedy.rows[:, 1], 1, caches, greedy.mask)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -240,20 +507,25 @@ def _greedy_with_logits(model, frames, max_len, vocab_w8):
 
 
 def _assert_same_caption(model, frames, vocab_w8, max_len=FULL_LEN):
-    """Graphed against eager: rows and each step's logits bit for bit; the
-    graphed step's logits not overwritten; every step a replay."""
+    """Graphed against eager: rows bit for bit; the eager loop's calls, or
+    those and one past an early stop (``past_stop``), the first ones'
+    logits bit for bit; the graphed steps' logits not overwritten; every
+    step a replay. Returns the rows and the eager loop's call count."""
     with pytest.MonkeyPatch.context() as mp:
         _eager(model, mp)
         want, eager = _greedy_with_logits(model, frames, max_len, vocab_w8)
     replays = model.decode_graphs.replays
+    past = model.decode_graphs.past_stop
     got, graphed = _greedy_with_logits(model, frames, max_len, vocab_w8)
     assert torch.equal(got, want)
-    assert len(graphed.held) == len(eager.held)
+    beyond = int(len(eager.held) < max_len)
+    assert len(graphed.held) == len(eager.held) + beyond
+    assert model.decode_graphs.past_stop - past == beyond
     for step, (a, b) in enumerate(zip(graphed.held, eager.held)):
         assert torch.equal(a, b), f"step {step}"
     graphed.assert_unaliased()
     assert model.decode_graphs.replays - replays == len(graphed.held)
-    return got, len(graphed.held)
+    return got, len(eager.held)
 
 
 @pytest.mark.cuda
@@ -281,6 +553,71 @@ def test_an_early_stop_equals_the_eager_one(card, monkeypatch, batch):
     monkeypatch.setattr(card, "sep_token_id", int(full[0, 4]))
     rows, steps = _assert_same_caption(card, frames, None)
     assert steps <= 4 and steps < FULL_LEN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["bf16", "int8"])
+def test_rows_that_stop_at_different_steps_equal_the_eager_ones(card,
+                                                               monkeypatch,
+                                                               head):
+    """A scripted decode, captured into a copy's graphs: the three rows emit
+    SEP at steps 3, 7 and 10, keep generating, and all emit it at step 12,
+    where the eager loop stops and the graphed one decodes one past."""
+    sep, all_at = card.sep_token_id, 12
+    script = [[1000 + 100 * r + i for i in range(FULL_LEN)]
+              for r in range(3)]
+    for r, own in enumerate((3, 7, 10)):
+        script[r][own] = script[r][all_at] = sep
+    _scripted(monkeypatch, script, device="cuda")
+    model = copy.deepcopy(card)  # its own workspaces, captured scripted
+    vocab_w8 = model.vocab_w8 if head == "int8" else None
+    rows, steps = _assert_same_caption(model, _card_frames(3, seed=23),
+                                       vocab_w8)
+    assert steps == all_at + 1
+    want = torch.zeros_like(rows)
+    want[:, 0] = card.cls_token_id
+    want[:, 1:all_at + 2] = torch.tensor(script)[:, :all_at + 1]
+    assert torch.equal(rows.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop", ["full", "early"])
+def test_host_stop_false_gives_the_same_rows(card, monkeypatch, stop):
+    frames = _card_frames(2, seed=19, same=stop == "early")
+    want, _ = _assert_same_caption(card, frames, None)
+    if stop == "early":
+        monkeypatch.setattr(card, "sep_token_id", int(want[0, 4]))
+        want, steps = _assert_same_caption(card, frames, None)
+        assert steps <= 4
+    replays, past = card.decode_graphs.replays, card.decode_graphs.past_stop
+    got = decode.student_greedy(card, frames, FULL_LEN, host_stop=False)
+    assert torch.equal(got, want)
+    assert card.decode_graphs.replays - replays == FULL_LEN
+    assert card.decode_graphs.past_stop == past
+
+
+@pytest.mark.cuda
+def test_a_replica_on_another_card_than_the_current_one(card):
+    """A replica's thread under ``BatchCaptionServer(mesh=)`` keeps card 0
+    current while its model lives on card 1. Early stops and full captions
+    in turn there equal the eager ones: a flag read before its position
+    landed would find the last caption's stop and cut this one short."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    model = copy.deepcopy(card).to("cuda:1")
+    sep = model.sep_token_id
+    same = _card_frames(2, seed=7, same=True).to("cuda:1")
+    other = _card_frames(2, seed=13).to("cuda:1")
+    assert torch.cuda.current_device() == 0
+    stop = int(_assert_same_caption(model, same, None)[0][0, 4])
+    for _ in range(3):
+        model.sep_token_id = stop
+        _, steps = _assert_same_caption(model, same, None)
+        assert steps <= 4
+        model.sep_token_id = sep
+        _, steps = _assert_same_caption(model, other, None)
+        assert steps > 5
+    assert torch.cuda.current_device() == 0
 
 
 @pytest.mark.cuda
@@ -394,7 +731,7 @@ def test_few_host_launches_a_token_lie_outside_the_graph(card, tmp_path):
     assert graph_calls == len(tokens)
     per_token = (len(calls) - graph_calls) / len(tokens)
     print(f"host launches a token outside the graph: {per_token:.2f}")
-    assert 0 < per_token < 20
+    assert 1 <= per_token <= 2  # the logits' clone, at most one more
 
 
 @pytest.mark.cuda
